@@ -1,0 +1,185 @@
+"""K5 (elementwise RCB add) and K2/K3/K4 (blocked RCB scans): wrappers,
+plain versions and launch counters.
+
+K5 replaces `ops/pallas_rcb.py` `_add_kernel` (via `_add_fn`, entry
+`rcb_add_pallas`): one thread per element runs Alg. 7 (12 field
+multiplies; 3x that over Fq2), bound by the integer multiply rate.
+
+K2, K3 and K4 replace the three `_scan_fn` kernels of `ops/pallas_rcb.py`:
+`_scan_prefix_madd_packedf_kernel` (K2, sorted affine leaves packed two
+limbs per word with the infinity flag in bit 31 of the top X word, mixed
+add), `_scan_prefix_add_kernel` (K3, projective leaves) and
+`_scan_total_add_kernel` (K4, block totals only). On Hopper they are one
+templated kernel (`rcb_scan_kernel`, mode 0/1/2): thread g runs the B
+elements g*B .. g*B+B-1 from the identity (0 : 1 : 0), writing every
+inclusive prefix W[g*B + b] (K2, K3) and the block total T[g]. W is indexed
+by position, T by block, as in the reference. The chain of B dependent adds
+per thread is latency bound and the grid is N/B threads; the MSM widens it
+by scanning all of a batch of windows in one launch.
+
+Layouts: points are tuples (X, Y, Z) of (M, L) or (M, 2, L) int32 limb
+tensors; packed leaves are (M, R/2) int32 words (R = ext * L).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cuda_build
+from .limbs import MASK, pack_limbs, unpack_words
+
+
+def _launch_args(ts):
+    return [None if t is None else t.data_ptr() for t in ts]
+
+
+# ------------------------------------------------------------------ K5
+def rcb_add(rg, p, q):
+    """Elementwise complete projective add: K5 on CUDA, plain on CPU."""
+    if p[0].device.type == "cpu":
+        return rcb_add_plain(rg, p, q)
+    cs = rg.cf.coord_shape
+    shape = torch.broadcast_shapes(*(c.shape for c in (*p, *q)))
+    coords = [c.expand(shape).contiguous() for c in (*p, *q)]
+    for i, c in enumerate(coords):
+        cuda_build.check_tensor(c, f"rcb_add operand {i}")
+    out = [torch.empty(shape, dtype=torch.int32, device=coords[0].device)
+           for _ in range(3)]
+    n = out[0].numel() // math.prod(cs)
+    if n == 0:
+        return tuple(out)
+    rc = cuda_build.lib().zkp_rcb_add(
+        rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out),
+        *_launch_args(coords), n, cuda_build.stream_ptr(out[0]),
+    )
+    cuda_build.COUNTS["rcb_add"] += 1
+    cuda_build.check(rc, "rcb_add")
+    return tuple(out)
+
+
+def rcb_add_plain(rg, p, q):
+    """Plain K5: Alg. 7 as torch ops over the plain field."""
+    return rg.plain.add_formula(p, q)
+
+
+# ------------------------------------------------------------ K2 / K3 / K4
+def pack_limbs_flag(rg, X, Y, inf):
+    """(Xp, Yp) packed words (n, R/2), the infinity flag in bit 31 of Xp's
+    top word. Needs top-limb headroom (p < 2^(16 L - 1)), asserted.
+    Reference: `pallas_rcb.pack_limbs_flag` (`ops/pallas_rcb.py:640`)."""
+    df = rg.df
+    assert df.spec.modulus >> (16 * df.L - 1) == 0, "no flag headroom"
+    n = X.shape[0]
+    xp = pack_limbs(X.reshape(n, -1))
+    xp[:, -1] = torch.where(inf, xp[:, -1] | torch.iinfo(torch.int32).min, xp[:, -1])
+    return xp, pack_limbs(Y.reshape(n, -1))
+
+
+def unpack_leaves(rg, xw, yw):
+    """Packed words with flag -> (X, Y, inf) standard int32 coordinates."""
+    M = xw.shape[0]
+    cs = rg.cf.coord_shape
+    inf = ((xw[:, -1].to(torch.int64) >> 31) & 1).bool()
+    X = unpack_words(xw)
+    X[:, -1] &= MASK >> 1  # clear the flag bit from the top limb
+    Y = unpack_words(yw)
+    return (X.to(torch.int32).reshape(M, *cs), Y.to(torch.int32).reshape(M, *cs), inf)
+
+
+def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool):
+    cs = rg.cf.coord_shape
+    dev = ins[0].device
+    G = M // B
+    for i, t in enumerate(ins):
+        cuda_build.check_tensor(t, f"rcb_scan input {i}")
+    W = [torch.empty((M, *cs), dtype=torch.int32, device=dev) for _ in range(3)] \
+        if with_w else [None] * 3
+    T = [torch.empty((G, *cs), dtype=torch.int32, device=dev) for _ in range(3)]
+    z = ins[2] if len(ins) == 3 else None
+    rc = cuda_build.lib().zkp_rcb_scan(
+        rg.kconsts.ctypes.data, rg.cf.ext, mode, *_launch_args(W),
+        *_launch_args(T), ins[0].data_ptr(), ins[1].data_ptr(),
+        None if z is None else z.data_ptr(), G, B,
+        cuda_build.stream_ptr(T[0]),
+    )
+    return rc, (tuple(W) if with_w else None), tuple(T)
+
+
+def _check_blocks(M: int, B: int):
+    if B <= 0 or M % B:
+        raise ValueError(f"scan: {M} elements are not a multiple of B = {B}")
+
+
+def scan_prefix_madd(rg, xw, yw, B: int):
+    """K2: sorted packed affine leaves (M = G*B) -> (W (M,), T (G,))."""
+    M = xw.shape[0]
+    _check_blocks(M, B)
+    if xw.device.type == "cpu":
+        return scan_prefix_madd_plain(rg, xw, yw, B)
+    rc, W, T = _scan_launch(rg, 0, (xw.contiguous(), yw.contiguous()), M, B, True)
+    cuda_build.COUNTS["scan_prefix_madd"] += 1
+    cuda_build.check(rc, "scan_prefix_madd")
+    return W, T
+
+
+def scan_prefix_add(rg, pts, B: int):
+    """K3: projective points (M = G*B) -> (W (M,), T (G,))."""
+    M = pts[0].shape[0]
+    _check_blocks(M, B)
+    if pts[0].device.type == "cpu":
+        return scan_prefix_add_plain(rg, pts, B)
+    rc, W, T = _scan_launch(rg, 1, [c.contiguous() for c in pts], M, B, True)
+    cuda_build.COUNTS["scan_prefix_add"] += 1
+    cuda_build.check(rc, "scan_prefix_add")
+    return W, T
+
+
+def scan_total_add(rg, pts, B: int):
+    """K4: projective points (M = G*B) -> block totals T (G,)."""
+    M = pts[0].shape[0]
+    _check_blocks(M, B)
+    if pts[0].device.type == "cpu":
+        return scan_total_add_plain(rg, pts, B)
+    rc, _, T = _scan_launch(rg, 2, [c.contiguous() for c in pts], M, B, False)
+    cuda_build.COUNTS["scan_total_add"] += 1
+    cuda_build.check(rc, "scan_total_add")
+    return T
+
+
+def _blocked(c, B):
+    return c.reshape(c.shape[0] // B, B, *c.shape[1:])
+
+
+def _scan_plain(rg, leaves, B: int, step, with_w: bool):
+    G = leaves[0].shape[0] // B
+    bl = [_blocked(c, B) for c in leaves]
+    acc = rg.identity((G,))
+    ws = []
+    for b in range(B):
+        acc = step(acc, tuple(c[:, b] for c in bl))
+        if with_w:
+            ws.append(acc)
+    if not with_w:
+        return None, acc
+    W = tuple(
+        torch.stack([w[k] for w in ws], dim=1).reshape(G * B, *acc[k].shape[1:])
+        for k in range(3)
+    )
+    return W, acc
+
+
+def scan_prefix_madd_plain(rg, xw, yw, B: int):
+    rgp = rg.plain
+    return _scan_plain(rgp, unpack_leaves(rg, xw, yw), B, rgp.madd, True)
+
+
+def scan_prefix_add_plain(rg, pts, B: int):
+    rgp = rg.plain
+    return _scan_plain(rgp, tuple(pts), B, rgp.add_formula, True)
+
+
+def scan_total_add_plain(rg, pts, B: int):
+    rgp = rg.plain
+    return _scan_plain(rgp, tuple(pts), B, rgp.add_formula, False)[1]

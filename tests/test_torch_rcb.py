@@ -1,0 +1,124 @@
+"""The port's RCB group ops (K5's plain version) and the blocked scans (the
+plain versions of K2, K3 and K4) against the reference's RcbGroup and its
+CPU scan fallbacks. Projective coordinates are compared bit for bit."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ckb_zkp_tpu.host.pairing import get_curve
+from ckb_zkp_tpu.ops import msm as ref_msm
+from ckb_zkp_tpu.ops.msm import device_group as ref_device_group
+from ckb_zkp_tpu.ops.rcb import rcb_group as ref_rcb_group
+from ckb_zkp_tpu_torch.ops import cuda_rcb
+from ckb_zkp_tpu_torch.ops.limbs import to_numpy, to_torch
+from ckb_zkp_tpu_torch.ops.msm import device_group
+
+torch.set_num_threads(1)
+CURVE = get_curve("bn254")
+
+
+def _points(group, n, seed):
+    """n affine host points k*G with k from a numpy seed."""
+    host = CURVE.g1 if group == "g1" else CURVE.g2
+    gen = CURVE.g1_gen if group == "g1" else CURVE.g2_gen
+    ks = np.random.default_rng(seed).integers(2, 1 << 62, size=n)
+    return [host.mul(gen, int(k)) for k in ks]
+
+
+def _t(pt):
+    return tuple(to_torch(np.asarray(c)) for c in pt)
+
+
+def _same(ref_pt, port_pt):
+    return all(
+        np.array_equal(np.asarray(jax.device_get(a)), to_numpy(b))
+        for a, b in zip(ref_pt, port_pt)
+    )
+
+
+def _affine(pts):
+    return [(True, None, None) if p.infinity else (False, p.x, p.y) for p in pts]
+
+
+def _groups(group):
+    rdg = ref_device_group(CURVE, group)
+    return rdg, ref_rcb_group(rdg), device_group(CURVE, group)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_add_madd_double_bit_exact(group):
+    rdg, rrg, dg = _groups(group)
+    rg, host = dg.rg, rdg.host_group
+    pts = _points(group, 6, 11)
+    a, inf = pts[0], host.infinity
+    left = pts + [a, a, inf, a, inf]
+    right = pts[::-1] + [host.neg(a), inf, a, a, inf]
+    P = rrg.from_affine_enc(rdg.encode_points(left))
+    Q = rrg.from_affine_enc(rdg.encode_points(right))
+    P = rrg.add(P, Q)  # general (non-affine) projective Z
+    tP, tQ = _t(P), _t(Q)
+    assert _same(rrg.add(P, Q), rg.add(tP, tQ))
+    assert _same(rrg.add(P, P), rg.add(tP, tP))
+    assert _same(rrg.double(P), rg.double(tP))
+    assert _same(rrg.to_jacobian(P), rg.to_jacobian(tP))
+    rinf = rdg.cf.is_zero(Q[2])
+    tinf = dg.cf.is_zero(tQ[2])
+    assert _same(rrg.madd(P, (Q[0], Q[1], rinf)), rg.madd(tP, (tQ[0], tQ[1], tinf)))
+    # the complete formulas agree with the host group at the edge cases
+    Pa = _t(rrg.from_affine_enc(rdg.encode_points(left)))
+    Qa = _t(rrg.from_affine_enc(rdg.encode_points(right)))
+    got = dg.decode_points_host(rg.to_jacobian(rg.add(Pa, Qa)))
+    assert _affine(got) == _affine(host.add(x, y) for x, y in zip(left, right))
+    assert _same(rrg.neg(P), rg.neg(tP))
+
+
+def _leaves(rdg, group, n, seed):
+    pts = _points(group, 8, seed)
+    rng = np.random.default_rng(seed)
+    sel = [pts[i] for i in rng.integers(0, 8, size=n)]
+    for i in rng.integers(0, n, size=max(1, n // 8)):
+        sel[i] = rdg.host_group.infinity
+    X, Y, Z = rdg.encode_points(sel)
+    return X, Y, np.asarray(Z).reshape(n, -1).max(axis=1) == 0
+
+
+@pytest.mark.parametrize("group,n,B", [("g1", 96, 32), ("g2", 96, 32), ("g1", 15, 5)])
+def test_scan_prefix_madd_matches_reference_fallback(group, n, B):
+    rdg, rrg, dg = _groups(group)
+    X, Y, inf = _leaves(rdg, group, n, 21 + n)
+    w_get, T = ref_msm._scan_prefix_madd(rrg, (X, Y, jnp.asarray(inf)), B)
+    Wref = w_get(jnp.arange(n))
+    xw, yw = cuda_rcb.pack_limbs_flag(dg.rg, to_torch(X), to_torch(Y), torch.as_tensor(inf))
+    W, Tp = cuda_rcb.scan_prefix_madd(dg.rg, xw, yw, B)
+    assert _same(Wref, W) and _same(T, Tp)
+    assert torch.equal(cuda_rcb.unpack_leaves(dg.rg, xw, yw)[2], torch.as_tensor(inf))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scan_add_and_totals_match_reference_full_prefix(group):
+    """K3 and K4 (plain) rebuild the reference's CPU _full_prefix bit for bit."""
+    rdg, rrg, dg = _groups(group)
+    rg = dg.rg
+    B, n = 32, 96
+    X, Y, inf = _leaves(rdg, group, n, 31)
+    Z = np.where(inf.reshape((n,) + (1,) * (np.asarray(X).ndim - 1)), 0,
+                 np.asarray(rdg.cf.ones((n,))))
+    pts = rrg.add(rrg.from_affine_enc((X, Y, Z)), rrg.from_affine_enc((Y, X, Z)))
+    want = ref_msm._full_prefix(rrg, pts, B)
+    tp = _t(pts)
+    W, T = cuda_rcb.scan_prefix_add(rg, tp, B)
+    assert _same(T, cuda_rcb.scan_total_add(rg, tp, B))
+    G = T[0].shape[0]
+    P2, Ttop = cuda_rcb.scan_prefix_add(rg, T, G)  # one block: a sequential scan
+    ident = rg.identity((1,))
+    Pex = tuple(torch.cat([i, c[:-1]]) for i, c in zip(ident, P2))
+    rep = tuple(torch.repeat_interleave(c, B, dim=0)[:n] for c in Pex)
+    assert _same(want, rg.add(rep, W))
+    # tail launch, B = n = 5 in one block: the same sequence of adds as the
+    # first block's within-block prefix at 4 (W, held to the reference above)
+    tail = cuda_rcb.scan_total_add(rg, tuple(c[:5] for c in tp), 5)
+    assert all(torch.equal(a, b[4:5]) for a, b in zip(tail, W))
+    assert _same(tuple(c[-1:] for c in P2), Ttop)
