@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's Groth16 BN254 prover once on one GPU.
+"""Run the PyTorch/CUDA port's Groth16 BN254 setup and prover on one GPU.
 
-    python3 chip_smoke.py              # all phases; needs one CUDA card
+    python3 chip_smoke.py              # all phases at 2^20; needs one CUDA card
     python3 chip_smoke.py --log2 14    # the same at a 2^14 slice
 
-Phases: (1) the card, its power limit and the torch/CUDA versions;
-(2) nvcc builds the kernels from ckb_zkp_tpu_torch/csrc; (3) every kernel
-of the prover's path (K1-K5) against its plain PyTorch version on the
-same CUDA tensors, bit-exact, with both times: at small shapes with edge
-values, then at the shapes the slice's prove gives each kernel; and the
-port's MSM against the host-int MSM on a small input; (4) the slice: port
-setup, one warm-up and one timed prove of a 2^18-constraint square chain,
-the reference verifier's verdict on the proof and on a tampered public
-input, the kernel launch counts of the timed prove, and a check that the
-timed prove leaves no device memory behind.
+Phases: (1) the card, its power limit, SM clock and the torch/CUDA
+versions; (2) nvcc builds the kernels from ckb_zkp_tpu_torch/csrc, one
+process per source, in parallel; (3) every kernel of the setup's and the
+prover's paths (K1-K6) against its plain PyTorch version on the same CUDA
+tensors, bit-exact, with both times: at small shapes with edge values, then
+at the shapes the slice gives each kernel (K6: the setup's fixed-base
+width; K1-K5: the prove's shapes), each beside its bound; and the port's
+MSM against the host-int MSM on a small input; (4) a 2^14 setup check: the
+device instance map against the host ints, and the device-branch queries
+against the host-mode queries point for point; (5) the slice: the device
+setup of a (2^log2 - 2)-constraint square chain with its stage times, one
+warm-up and one timed prove, the verifier's verdict on the proof and on a
+tampered public input, the kernel launch counts of the setup (K6) and of
+the timed prove (K1-K5), and a check that the timed prove leaves no device
+memory behind.
+
+Bounds: the least time the card could take for a kernel's work at that
+shape, the larger of its bytes (each input read once, each output written
+once; an Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s and its 32-bit
+multiply instructions (an 8-word CIOS product is 2 * 8^2 + 8 word
+products, each a low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD
+per SM per clock at the SM's maximum clock. No single PyTorch call computes
+any of these functions, so `library_ms` is null.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table. Without a
@@ -34,26 +47,59 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 DEVICE = "cuda"
-SOURCE = "ckb_zkp_tpu_torch/csrc/zkp_kernels.cu"
-REPLACES = {
-    "mont_mul": "ckb_zkp_tpu/ops/pallas_field.py:323",
-    "scan_prefix_madd": "ckb_zkp_tpu/ops/pallas_rcb.py:248",
-    "scan_prefix_add": "ckb_zkp_tpu/ops/pallas_rcb.py:297",
-    "scan_total_add": "ckb_zkp_tpu/ops/pallas_rcb.py:316",
-    "rcb_add": "ckb_zkp_tpu/ops/pallas_rcb.py:193",
+CSRC = "ckb_zkp_tpu_torch/csrc/"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "mont_mul": ("mont_mul.cu", "ckb_zkp_tpu/ops/pallas_field.py:323"),
+    "scan_prefix_madd": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:248"),
+    "scan_prefix_add": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:297"),
+    "scan_total_add": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
+    "rcb_add": ("rcb_add.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
+    "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
 }
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+IMAD_PER_SM_CLOCK = 64  # CUDA Programming Guide, compute capability 9.0
+FQ_BYTES = 64  # 16 int32 limbs
+IMAD_PER_FQ_MUL = 2 * (2 * 8 * 8 + 8)  # CIOS over 8 words, low + high IMAD
+_RATE: dict = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smi() -> str:
+def smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fq_muls(formula: str, ext: int) -> int:
+    """Fq multiplies of one Alg. 7 add (12) or Alg. 8 mixed add (11); over
+    Fq2 the two multiplies by 3b are Fq2 products too (G1's 3b = 9 is an add
+    chain), and an Fq2 product is 3 Fq products."""
+    base = {"add": 12, "madd": 11}[formula]
+    return 3 * (base + 2) if ext == 2 else base
+
+
+def imad_rate() -> dict:
+    """The card's 32-bit multiply rate at its maximum SM clock."""
+    if not _RATE:
+        import torch
+
+        mhz = float(smi("clocks.max.sm").split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _RATE.update(sms=sms, sm_mhz=mhz, imad_per_s=IMAD_PER_SM_CLOCK * sms * mhz * 1e6)
+    return _RATE
+
+
+def bound(nbytes: float, imads: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / imad_rate()["imad_per_s"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -104,29 +150,26 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def chunked_plain_add(rg, P, Q, chunk: int = 1 << 16):
-    """K5's plain version in chunks of points, to bound its int64 and
-    float64 temporaries; the add is elementwise, so the values are the
-    same as one call's."""
+def chunked_plain(fn, rg, *operands, chunk: int = 1 << 16):
+    """An elementwise plain version in chunks of points, to bound its int64
+    and float64 temporaries; the function is elementwise, so the values are
+    the same as one call's. Each operand is a tuple of tensors."""
     import torch
 
-    from ckb_zkp_tpu_torch.ops import cuda_rcb
-
-    parts = [
-        cuda_rcb.rcb_add_plain(rg, tuple(c[i : i + chunk] for c in P),
-                               tuple(c[i : i + chunk] for c in Q))
-        for i in range(0, P[0].shape[0], chunk)
-    ]
+    n = operands[0][0].shape[0]
+    parts = [fn(rg, *(tuple(c[i : i + chunk] for c in op) for op in operands))
+             for i in range(0, n, chunk)]
     return tuple(torch.cat(cs, dim=0) for cs in zip(*parts))
 
 
 def path_shapes(log2: int, scalar_bits: int) -> dict:
-    """Element counts each kernel gets from the 2^log2 square-chain prove,
-    derived from the MSM's own rules (`ops/msm.py`): every MSM has
-    npad = 2^log2 points and runs `batch` windows of nb buckets per launch.
-    K2 scans batch * npad sorted leaves; K3's first level scans the
+    """Element counts each kernel gets from the 2^log2 square-chain slice,
+    derived from the code's own rules. The prove (`ops/msm.py`): every MSM
+    has npad = 2^log2 points and runs `batch` windows of nb buckets per
+    launch; K2 scans batch * npad sorted leaves; K3's first level scans the
     batch * npad / 32 block totals; K4's first level and K5 (E = before +
-    W[q]) run at batch * nb; K1 multiplies 2^log2 witness rows."""
+    W[q]) run at batch * nb; K1 multiplies 2^log2 witness rows. The setup:
+    K6 runs once per window at the fixed-base width, 2^log2 for G1 and G2."""
     from ckb_zkp_tpu_torch.ops import msm
 
     npad = 1 << log2
@@ -136,31 +179,42 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     nb = 1 << c
     return {"mont_mul": npad, "scan_prefix_madd": batch * npad,
             "scan_prefix_add": batch * npad // msm._RCB_B,
-            "scan_total_add": batch * nb, "rcb_add": batch * nb}
+            "scan_total_add": batch * nb, "rcb_add": batch * nb, "rcb_madd": npad}
+
+
+class Recorder:
+    """Kernel-vs-plain comparisons. The kernel table keeps the times and
+    the bound of each kernel's first comparison at a main-path shape."""
+
+    def __init__(self, results: dict):
+        self.results = results
+
+    def __call__(self, name, err, ms, plain_ms, what, work=None):
+        line = (f"kernel {name} [{what}]: max_abs_err={err} kernel_ms={ms:.6f} "
+                f"plain_ms={plain_ms:.6f}")
+        b = bound(*work) if work is not None else None
+        if b is not None:
+            line += f" bound_ms={b['bound_ms']:.6f} ({b['bound_by']})"
+        log(line)
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version ({what})")
+        r = self.results.setdefault(name, {"max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if b is not None and "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, **b)
 
 
 def phase_kernels(results: dict, log2: int) -> None:
     import numpy as np
     import torch
 
-    from ckb_zkp_tpu_torch._reference import get_curve
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
     from ckb_zkp_tpu_torch.ops import cuda_rcb
     from ckb_zkp_tpu_torch.ops.msm import _RCB_B, device_group
 
     rng = np.random.default_rng(SEED)
     curve = get_curve("bn254")
-
-    def record(name, err, ms, plain_ms, what, path=False):
-        """One comparison; the kernel table keeps the times of the first
-        comparison at a main-path shape."""
-        log(f"kernel {name} [{what}]: max_abs_err={err} kernel_ms={ms:.6f} "
-            f"plain_ms={plain_ms:.6f}")
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version ({what})")
-        r = results.setdefault(name, {"max_abs_err": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if path and "ms" not in r:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+    record = Recorder(results)
 
     # K1 at 2^16 Fr and Fq elements with 0, 1, p - 1 and R mod p
     n = 1 << 16
@@ -180,7 +234,8 @@ def phase_kernels(results: dict, log2: int) -> None:
                cuda_ms(lambda: df.mul(a, b), 50),
                cuda_ms(lambda: df.plain.mul(a, b), 5), f"bn254 {fname} n=2^16")
 
-    # K5 at 2^14 G1 and G2 points with P+P, P+(-P) and identity operands
+    # K5 and K6 at 2^14 G1 and G2 points with P+P, P+(-P), identity
+    # operands and (K6) flagged leaves, checked against the host group
     n = 1 << 14
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
@@ -188,23 +243,40 @@ def phase_kernels(results: dict, log2: int) -> None:
         gen = curve.g1_gen if group == "g1" else curve.g2_gen
         r0, r1, r2, r3 = (host.mul(gen, int(x)) for x in rng.integers(2, 1 << 60, 4))
         inf = host.infinity
-        left = [r0, r1, inf, r3, inf, r1]
-        right = [r0, host.neg(r1), r2, inf, inf, r2]
+        left = [r0, r1, inf, r3, inf, r1, r2]
+        right = [r0, host.neg(r1), r2, inf, inf, r2, host.neg(r2)]
+        k_edge = len(left)
+        want = [host.add(x, y) for x, y in zip(left, right)]
         P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
         Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
         for full, edge in ((P, rg.from_affine_enc(dg.encode_points(left))),
                            (Q, rg.from_affine_enc(dg.encode_points(right)))):
             for c_full, c_edge in zip(full, edge):
-                c_full[: len(left)] = c_edge
+                c_full[:k_edge] = c_edge
         k = rg.add(P, Q)
         pl = cuda_rcb.rcb_add_plain(rg, P, Q)
         torch.cuda.synchronize()
-        got = dg.decode_points_host(rg.to_jacobian(tuple(c[: len(left)] for c in k)))
-        if got != [host.add(x, y) for x, y in zip(left, right)]:
+        got = dg.decode_points_host(rg.to_jacobian(tuple(c[:k_edge] for c in k)))
+        if got != want:
             raise AssertionError(f"rcb_add edge cases wrong ({group})")
         record("rcb_add", max_abs_err(k, pl),
                cuda_ms(lambda: rg.add(P, Q), 20),
                cuda_ms(lambda: cuda_rcb.rcb_add_plain(rg, P, Q), 2), f"{group} n=2^14")
+        xq, yq, zq = dg.encode_points(right)
+        leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
+                  torch.as_tensor(rng.random(n) < 0.1, device=DEVICE))
+        leaves[0][:k_edge], leaves[1][:k_edge] = xq, yq
+        leaves[2][:k_edge] = dg.cf.is_zero(zq)
+        k = rg.madd(P, leaves)
+        pl = cuda_rcb.rcb_madd_plain(rg, P, leaves)
+        torch.cuda.synchronize()
+        got = dg.decode_points_host(rg.to_jacobian(tuple(c[:k_edge] for c in k)))
+        if got != want:
+            raise AssertionError(f"rcb_madd edge cases wrong ({group})")
+        record("rcb_madd", max_abs_err(k, pl),
+               cuda_ms(lambda: rg.madd(P, leaves), 20),
+               cuda_ms(lambda: cuda_rcb.rcb_madd_plain(rg, P, leaves), 2),
+               f"{group} n=2^14, flagged leaves")
 
     # the scan in all three modes at N = 2^15 (B = 32) and at a tail B = 5
     for group in ("g1", "g2"):
@@ -236,44 +308,64 @@ def phase_kernels(results: dict, log2: int) -> None:
                    cuda_ms(lambda: cuda_rcb.scan_total_add(rg, pts, B), 5),
                    cuda_ms(lambda: cuda_rcb.scan_total_add_plain(rg, pts, B), 1), what)
 
-    # every kernel at the shapes the slice's prove gives it, K1 also with
-    # a broadcast constant operand (to_mont/from_mont read it with step 0);
+    # every kernel at the shapes the slice gives it, K1 also with a
+    # broadcast constant operand (to_mont/from_mont read it with step 0);
     # the plain side runs once, timed by that call
     sizes = path_shapes(log2, g1.fr.L * 16)
     n = sizes["mont_mul"]
     df = g1.fr
     a = rand_field(rng, n, (df.L,), df)
     b = rand_field(rng, n, (df.L,), df)
-    for what, kf, pf in (
-        ("a*b", lambda: df.mul(a, b), lambda: df.plain.mul(a, b)),
-        ("to_mont, step 0", lambda: df.to_mont(a), lambda: df.plain.to_mont(a)),
-        ("from_mont, step 0", lambda: df.from_mont(a), lambda: df.plain.from_mont(a)),
+    for what, kf, pf, nin in (
+        ("a*b", lambda: df.mul(a, b), lambda: df.plain.mul(a, b), 2),
+        ("to_mont, step 0", lambda: df.to_mont(a), lambda: df.plain.to_mont(a), 1),
+        ("from_mont, step 0", lambda: df.from_mont(a), lambda: df.plain.from_mont(a), 1),
     ):
         pl, plain_ms = timed_once(pf)
         record("mont_mul", max_abs_err(kf(), pl), cuda_ms(kf, 10), plain_ms,
-               f"bn254 fr n={n} {what}; main path", path=True)
+               f"bn254 fr n={n} {what}; main path",
+               ((nin + 1) * n * FQ_BYTES, n * IMAD_PER_FQ_MUL))
+    B = _RCB_B
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
-        rg, cs = dg.rg, dg.cf.coord_shape
+        rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES  # bytes of one coordinate
+        # K6 at the setup's fixed-base width, flags as often as a zero digit
+        n = sizes["rcb_madd"]
+        P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
+                  torch.as_tensor(rng.random(n) < 1 / 256, device=DEVICE))
+        live = n - int(leaves[2].sum())
+        pl, plain_ms = timed_once(
+            lambda: chunked_plain(cuda_rcb.rcb_madd_plain, rg, P, leaves))
+        record("rcb_madd", max_abs_err(rg.madd(P, leaves), pl),
+               cuda_ms(lambda: rg.madd(P, leaves), 5), plain_ms,
+               f"{group} n={n}; main path (setup)",
+               (6 * n * eb + 2 * live * eb + n,
+                live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
+        del P, leaves, pl
         n = sizes["rcb_add"]
         P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
         Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
-        pl, plain_ms = timed_once(lambda: chunked_plain_add(rg, P, Q))
+        pl, plain_ms = timed_once(lambda: chunked_plain(cuda_rcb.rcb_add_plain, rg, P, Q))
         record("rcb_add", max_abs_err(rg.add(P, Q), pl),
                cuda_ms(lambda: rg.add(P, Q), 5), plain_ms,
-               f"{group} n={n}; main path", path=True)
-        B = _RCB_B
+               f"{group} n={n}; main path",
+               (9 * n * eb, n * fq_muls("add", ext) * IMAD_PER_FQ_MUL))
         N = sizes["scan_prefix_madd"]
         X = rand_field(rng, N, cs, dg.fq)
         Y = rand_field(rng, N, cs, dg.fq)
         inf = torch.as_tensor(rng.random(N) < 0.01, device=DEVICE)
+        live = N - int(inf.sum())
         xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
         del X, Y
         pl, plain_ms = timed_once(lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B))
         k = cuda_rcb.scan_prefix_madd(rg, xw, yw, B)
         record("scan_prefix_madd", max_abs_err(k[0] + k[1], pl[0] + pl[1]),
                cuda_ms(lambda: cuda_rcb.scan_prefix_madd(rg, xw, yw, B), 3), plain_ms,
-               f"{group} N={N} B={B}; main path", path=True)
+               f"{group} N={N} B={B}; main path",
+               (N * eb + 3 * N * eb + 3 * (N // B) * eb,
+                live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
         del xw, yw, k, pl
         for name, N in (("scan_prefix_add", sizes["scan_prefix_add"]),
                         ("scan_total_add", sizes["scan_total_add"])):
@@ -282,10 +374,13 @@ def phase_kernels(results: dict, log2: int) -> None:
             plain = getattr(cuda_rcb, name + "_plain")
             pl, plain_ms = timed_once(lambda: plain(rg, pts, B))
             k = kern(rg, pts, B)
+            w_out = 3 * N * eb if name == "scan_prefix_add" else 0
             if name == "scan_prefix_add":
                 k, pl = k[0] + k[1], pl[0] + pl[1]
             record(name, max_abs_err(k, pl), cuda_ms(lambda: kern(rg, pts, B), 3),
-                   plain_ms, f"{group} N={N} B={B}; main path", path=True)
+                   plain_ms, f"{group} N={N} B={B}; main path",
+                   (3 * N * eb + w_out + 3 * (N // B) * eb,
+                    N * fq_muls("add", ext) * IMAD_PER_FQ_MUL))
     torch.cuda.empty_cache()
 
     # the port's MSM against the host-int MSM on a small input
@@ -305,10 +400,54 @@ def phase_kernels(results: dict, log2: int) -> None:
         log(f"msm {group} n={n}: equal to the host-int MSM")
 
 
-def phase_slice(card: str, log2: int) -> dict:
+def phase_setup_check(log2: int) -> None:
+    """The device setup of a (2^log2 - 2)-constraint square chain against
+    the host-int instance map and the host-mode setup, point for point."""
     import torch
 
-    from ckb_zkp_tpu_torch._reference import get_curve, square_chain_shape
+    from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import groth16
+    from ckb_zkp_tpu_torch.schemes.groth16.qap import qap_matrices
+
+    curve = get_curve("bn254")
+    fr = curve.fr.modulus
+    prng = random.Random(SEED + 1)
+    shape = square_chain_shape((1 << log2) - 2, fr, seed=SEED % 997)
+    toxic = [prng.randrange(1, fr) for _ in range(5)]
+    qap = qap_matrices(shape, curve.fr, DEVICE)
+    nv = shape.num_variables
+    got = tuple(qap.df.decode(x[:nv]) for x in qap.evaluations_at(toxic[-1]))
+    if got != qap.evaluations_at_host(toxic[-1]):
+        raise AssertionError("device instance map != host instance map")
+    log(f"setup check 2^{log2}: device instance map (u, v, w) equals the host ints")
+    dev = groth16.generate_parameters_from_shape(shape, curve, *toxic, device=DEVICE)
+    host = groth16.generate_parameters_from_shape(
+        shape, curve, *toxic, device=DEVICE, host_mode=True)
+    ni = shape.num_inputs
+    for name in ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query"):
+        d, h = getattr(dev, name), getattr(host, name)
+        off = ni if name == "l_query" else 0
+        n = h[0].shape[0]
+        if not all(torch.equal(dc[off : off + n], hc) for dc, hc in zip(d, h)):
+            raise AssertionError(f"{name}: device branch != host mode")
+        pad = torch.cat([d[2][:off], d[2][off + n :]])
+        if bool(pad.any()):
+            raise AssertionError(f"{name}: padding rows are not at infinity")
+        log(f"setup check 2^{log2}: {name} {n} points equal, "
+            f"{d[0].shape[0] - n} padding rows at infinity")
+    if dev.vk != host.vk:
+        raise AssertionError("device-branch and host-mode verifying keys differ")
+
+
+def phase_slice(card: str, log2: int):
+    """Device setup, warm-up prove, timed prove and verdicts of the
+    (2^log2 - 2)-constraint square chain. Returns the kernel launches of
+    the setup and of the timed prove."""
+    import torch
+
+    from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
     from ckb_zkp_tpu_torch.ops import cuda_build
     from ckb_zkp_tpu_torch.schemes import groth16
 
@@ -321,11 +460,17 @@ def phase_slice(card: str, log2: int) -> dict:
         f"{shape.num_variables} variables, built in {time.perf_counter() - t0:.3f} s")
     toxic = [prng.randrange(1, fr) for _ in range(5)]
     setup_t: dict = {}
+    cuda_build.reset_counts()
     t0 = time.perf_counter()
     params = groth16.generate_parameters_from_shape(
         shape, curve, *toxic, device=DEVICE, timings=setup_t)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_launches = dict(cuda_build.COUNTS)
     log(f"setup: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
+    log(f"kernel launches in the setup: {json.dumps(setup_launches)}")
+    if setup_launches["rcb_madd"] <= 0:
+        raise AssertionError("the setup did not launch K6 (rcb_madd)")
     r, s = prng.randrange(1, fr), prng.randrange(1, fr)
     t0 = time.perf_counter()
     groth16.create_proof_from_shape(params, shape, r, s)
@@ -349,7 +494,7 @@ def phase_slice(card: str, log2: int) -> dict:
         raise AssertionError("a prove left device memory behind")
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the timed prove: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k != "rcb_madd"]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
     pvk = groth16.prepare_verifying_key(curve, params.vk)
@@ -359,13 +504,13 @@ def phase_slice(card: str, log2: int) -> dict:
     log(f"verify_proof: {ok}; tampered public input: {bad}")
     if ok is not True or bad is not False:
         raise AssertionError("the proof does not verify, or a tampered one does")
-    return launches
+    return setup_launches, launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log2", type=int, default=18,
-                    help="log2 of the slice's constraint domain (default 18)")
+    ap.add_argument("--log2", type=int, default=20,
+                    help="log2 of the slice's constraint domain (default 20)")
     args = ap.parse_args()
 
     import torch
@@ -378,27 +523,37 @@ def main() -> int:
     from ckb_zkp_tpu_torch.ops import cuda_build
 
     card = smi()
+    rate = imad_rate()
     log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"{rate['sms']} SMs, max SM clock {rate['sm_mhz']:.0f} MHz -> "
+        f"{rate['imad_per_s']:.4g} IMAD/s for the bounds")
     t0 = time.perf_counter()
     cuda_build.lib()
     log(f"build: {time.perf_counter() - t0:.3f} s wall, nvcc "
         f"{cuda_build.BUILD_INFO.get('seconds', 0.0):.3f} s -> "
         f"{os.path.relpath(cuda_build.BUILD_INFO['path'], REPO)}")
     for line in cuda_build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
+        if line.startswith("==") or any(
+                w in line for w in ("registers", "spill", "Function properties")):
             log(f"nvcc: {line.strip()}")
 
     results: dict = {}
     phase_kernels(results, args.log2)
-    launches = phase_slice(card, args.log2)
-    table = [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name in REPLACES
-    ]
+    phase_setup_check(min(14, args.log2))
+    setup_launches, prove_launches = phase_slice(card, args.log2)
+    table = []
+    for name, (src, replaces) in KERNELS.items():
+        r = results[name]
+        launches = (setup_launches if name == "rcb_madd" else prove_launches)[name]
+        if launches <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        table.append({
+            "name": name, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -3,16 +3,18 @@
 `params_from_reference` turns the JAX package's Groth16 `Parameters`
 (query arrays as numpy or jax arrays of uint32 16-bit limbs) into the
 port's: the same layouts as int32 tensors on `device`, and host points
-rebuilt as the port's alias classes. Both provers then compute from the
-same key.
+rebuilt as the port's own classes (`host/curves.py`). Both provers then
+compute from the same key.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ._reference import AffinePoint, Parameters, VerifyKey, get_curve
+from .host.curves import AffinePoint
+from .host.pairing import get_curve
 from .ops.limbs import to_torch
+from .schemes.groth16.types import Parameters, VerifyKey
 
 _QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
 
@@ -21,7 +23,7 @@ def point_from_reference(pt) -> AffinePoint:
     return AffinePoint(pt.x, pt.y, pt.infinity)
 
 
-def params_from_reference(params, device="cpu") -> Parameters:
+def params_from_reference(params, device="cuda") -> Parameters:
     pt = point_from_reference
     vk = params.vk
     queries = {

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels; their launch counters.
 
-The sources under ``ckb_zkp_tpu_torch/csrc/`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-ctypes (no PyTorch headers, so a build takes seconds, not minutes). The
-build runs at first use into ``ckb_zkp_tpu_torch/_build/``, keyed by a hash
-of the sources, so a checkout builds its own kernels. There is no fallback:
-a missing ``nvcc`` or a failed build raises.
+The sources under ``ckb_zkp_tpu_torch/csrc/`` (one per kernel family) have
+a plain C interface: ``nvcc`` compiles each for ``sm_90a`` into an object,
+all at once in parallel (``--split-compile=0`` also spreads the kernel
+instances of one source over threads), and links them into one shared
+library loaded with ctypes (no PyTorch headers, so a build takes seconds,
+not minutes).
+The build runs at first use into ``ckb_zkp_tpu_torch/_build/``, keyed by a
+hash of the sources, so a checkout builds its own kernels. There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 
 ``COUNTS`` holds one integer per kernel wrapper; a wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -23,8 +26,8 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("zkp_kernels.cu",)
-HEADERS = ("field.cuh",)
+SOURCES = ("rcb_scan.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
+HEADERS = ("field.cuh", "rcb.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -33,6 +36,7 @@ COUNTS = {
     "scan_prefix_add": 0,  # K3
     "scan_total_add": 0,  # K4
     "rcb_add": 0,  # K5
+    "rcb_madd": 0,  # K6
 }
 
 _lib = None
@@ -57,33 +61,59 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build_command(out_path: str) -> list[str]:
+def compile_command(source: str, obj_path: str) -> list[str]:
     return [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "--resource-usage",
-        "-shared", "-Xcompiler", "-fPIC", "-o", out_path,
-        *(os.path.join(CSRC_DIR, s) for s in SOURCES),
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "--split-compile=0",
+        "--resource-usage",
+        "-Xcompiler", "-fPIC", "-c", "-o", obj_path,
+        os.path.join(CSRC_DIR, source),
     ]
 
 
+def link_command(objs: list[str], out_path: str) -> list[str]:
+    return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", out_path, *objs]
+
+
 def build() -> str:
-    """Compile the kernels if this source hash has no library yet."""
+    """Compile the kernels if this source hash has no library yet: one
+    nvcc per source, all started together, then one link."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libzkp_kernels_{_source_hash()}.so")
+    key = _source_hash()
+    so = os.path.join(BUILD_DIR, f"libzkp_kernels_{key}.so")
     if os.path.exists(so):
         BUILD_INFO.update(path=so, seconds=0.0, cached=True)
         return so
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = build_command(tmp)
-    if not os.path.exists(cmd[0]):
+    if not os.path.exists(_nvcc()):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    tag = f"{key}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(compile_command(s, o), stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs, failed = [], []
+    for s, p in zip(SOURCES, procs):
+        out = p.communicate()[0]
+        logs.append(f"== {s} ({time.perf_counter() - t0:.1f} s)\n{out}")
+        if p.returncode != 0:
+            failed.append(s)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    if not failed:
+        res = subprocess.run(link_command(objs, tmp), capture_output=True, text=True)
+        logs.append("== link\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append("link")
     secs = time.perf_counter() - t0
-    log = res.stdout + res.stderr
+    log = "\n".join(logs)
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log[-4000:]}")
+        f.write(log)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log[-4000:]}")
     os.replace(tmp, so)
     BUILD_INFO.update(path=so, seconds=secs, cached=False, log=log)
     return so
@@ -99,6 +129,8 @@ def lib() -> ctypes.CDLL:
         L.zkp_mont_mul.restype = i
         L.zkp_rcb_add.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_rcb_add.restype = i
+        L.zkp_rcb_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
+        L.zkp_rcb_madd.restype = i
         L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 9 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
         _lib = L
@@ -116,17 +148,19 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_tensor(t, name: str, shape=None) -> None:
-    """Kernel operands: int32, contiguous, on CUDA, 16-byte aligned."""
+def check_tensor(t, name: str, shape=None, dtype=None) -> None:
+    """Kernel operands: contiguous, on CUDA, of `dtype` (int32 limb rows by
+    default, which must also be 16-byte aligned for the vector loads)."""
     import torch
 
+    dtype = torch.int32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
+    if dtype == torch.int32 and t.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")

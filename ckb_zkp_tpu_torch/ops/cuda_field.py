@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel `ops/pallas_field.py` `_mul_kernel` (through
 `_mul_fn`, entries `mont_mul`/`mont_mul_tiles`): a * b * R^-1 mod p with
-canonical output. On the H100 the kernel (`csrc/zkp_kernels.cu`
+canonical output. On the H100 the kernel (`csrc/mont_mul.cu`
 `mont_mul_kernel`) runs one thread per element, CIOS over eight 32-bit
 words with 64-bit accumulators: it is bound by the integer multiply rate
 (2 * 8^2 32x32->64 products per element) and reads 64 bytes per operand

@@ -1,9 +1,15 @@
-"""K5 (elementwise RCB add) and K2/K3/K4 (blocked RCB scans): wrappers,
-plain versions and launch counters.
+"""K5 (elementwise RCB add), K6 (elementwise RCB mixed add) and K2/K3/K4
+(blocked RCB scans): wrappers, plain versions and launch counters.
 
 K5 replaces `ops/pallas_rcb.py` `_add_kernel` (via `_add_fn`, entry
 `rcb_add_pallas`): one thread per element runs Alg. 7 (12 field
 multiplies; 3x that over Fq2), bound by the integer multiply rate.
+
+K6 replaces `ops/pallas_rcb.py:204` `_madd_kernel` (via `_madd_fn`, entry
+`rcb_madd_pallas`): one thread per element runs Alg. 8 (11 multiplies) on a
+projective point and an affine point, and keeps the projective point where
+the affine one's infinity flag is set. The flag is a bool array of the
+batch shape. The setup's fixed-base MSM is its caller.
 
 K2, K3 and K4 replace the three `_scan_fn` kernels of `ops/pallas_rcb.py`:
 `_scan_prefix_madd_packedf_kernel` (K2, sorted affine leaves packed two
@@ -62,6 +68,45 @@ def rcb_add(rg, p, q):
 def rcb_add_plain(rg, p, q):
     """Plain K5: Alg. 7 as torch ops over the plain field."""
     return rg.plain.add_formula(p, q)
+
+
+# ------------------------------------------------------------------ K6
+def rcb_madd(rg, p, q_affine):
+    """Elementwise p + (x2, y2, inf): K6 on CUDA, plain on CPU. Operands
+    broadcast against each other as in `rcb_madd_pallas`
+    (`ops/pallas_rcb.py:543-563`); inf has the batch shape only."""
+    x2, y2, inf2 = q_affine
+    if p[0].device.type == "cpu":
+        return rcb_madd_plain(rg, p, q_affine)
+    cs = rg.cf.coord_shape
+    nd = len(cs)
+    batch = torch.broadcast_shapes(
+        *(c.shape[: c.dim() - nd] for c in (*p, x2, y2)), inf2.shape)
+    shape = (*batch, *cs)
+    coords = [c.expand(shape).contiguous() for c in (*p, x2, y2)]
+    flags = torch.as_tensor(inf2, device=coords[0].device).expand(batch).contiguous()
+    for i, c in enumerate(coords):
+        cuda_build.check_tensor(c, f"rcb_madd operand {i}")
+    cuda_build.check_tensor(flags, "rcb_madd flags", batch, torch.bool)
+    out = [torch.empty(shape, dtype=torch.int32, device=coords[0].device)
+           for _ in range(3)]
+    n = math.prod(batch)
+    if n == 0:
+        return tuple(out)
+    rc = cuda_build.lib().zkp_rcb_madd(
+        rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out),
+        *_launch_args(coords), flags.data_ptr(), n,
+        cuda_build.stream_ptr(out[0]),
+    )
+    cuda_build.COUNTS["rcb_madd"] += 1
+    cuda_build.check(rc, "rcb_madd")
+    return tuple(out)
+
+
+def rcb_madd_plain(rg, p, q_affine):
+    """Plain K6: Alg. 8 and the flag select as torch ops over the plain
+    field (the port's `RcbGroup.plain.madd`)."""
+    return rg.plain.madd_formula(p, q_affine)
 
 
 # ------------------------------------------------------------ K2 / K3 / K4

@@ -67,9 +67,17 @@ class DeviceFq2:
 
     def inv(self, a):
         """Inverse via the norm a0^2 + a1^2 (Fermat in Fq); 0 maps to 0."""
+        return self._inv_by_norm(a, self.df.inv)
+
+    def batch_inv(self, a):
+        """As `inv`, the norms inverted by the Montgomery trick along dim 0
+        (reference `ops/ec.py:74-79`)."""
+        return self._inv_by_norm(a, self.df.batch_inv)
+
+    def _inv_by_norm(self, a, fq_inv):
         df = self.df
         sq = df.mul(a, a)  # (..., 2, L): a0^2, a1^2
-        ninv = df.inv(df.add(sq[..., 0, :], sq[..., 1, :]))
+        ninv = fq_inv(df.add(sq[..., 0, :], sq[..., 1, :]))
         prod = df.mul(a, ninv.unsqueeze(-2))
         return torch.stack([prod[..., 0, :], df.neg(prod[..., 1, :])], dim=-2)
 

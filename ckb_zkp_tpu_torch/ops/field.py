@@ -28,6 +28,7 @@ from .limbs import (
     nlimbs_for,
     toeplitz_cols,
 )
+from .scan_utils import hs_scan
 
 
 class DeviceField:
@@ -35,7 +36,7 @@ class DeviceField:
 
     ext = 1
 
-    def __init__(self, spec, device="cpu", plain: bool = False):
+    def __init__(self, spec, device="cuda", plain: bool = False):
         self.spec = spec
         self.device = torch.device(device)
         self.is_plain = plain
@@ -175,6 +176,32 @@ class DeviceField:
         """Fermat inversion; 0 maps to 0."""
         return self.pow_fixed(a, self.spec.modulus - 2)
 
+    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Montgomery-trick inversion along dim 0; zeros map to zeros
+        (reference `ops/field.py:221-247`): a prefix and a suffix product
+        by Hillis-Steele scans and one Fermat inversion of the total."""
+        z = self.is_zero(a)
+        x = torch.where(z.unsqueeze(-1), self.ones(a.shape[:-1]), a)
+        mul = lambda u, v: (self.mul(u[0], v[0]),)  # noqa: E731
+        prefix = hs_scan(mul, (x,))[0]
+        suffix = hs_scan(mul, (x.flip(0),))[0].flip(0)
+        total_inv = self.inv(prefix[-1:])
+        one = self.ones((1, *a.shape[1:-1]))
+        left = torch.cat([one, prefix[:-1]])
+        right = torch.cat([suffix[1:], one])
+        out = self.mul(self.mul(left, right), total_inv)
+        return torch.where(z.unsqueeze(-1), torch.zeros_like(out), out)
+
+    def powers(self, base: int, n: int) -> torch.Tensor:
+        """[base^0 .. base^(n-1)] as (n, L) Montgomery limbs, by doubling
+        (reference `ops/field.py:249-256`)."""
+        table = self.ones((1,))
+        b_pow = self.encode([base])
+        while table.shape[0] < n:
+            table = torch.cat([table, self.mul(table, b_pow)])
+            b_pow = self.sqr(b_pow)
+        return table[:n]
+
     # ------------- Montgomery conversion -------------
     def to_mont(self, raw: torch.Tensor) -> torch.Tensor:
         return self.mul(raw, self._const32("r2_limbs"))
@@ -202,5 +229,5 @@ def _device_field(spec, device: str) -> DeviceField:
     return DeviceField(spec, device)
 
 
-def device_field(spec, device="cpu") -> DeviceField:
+def device_field(spec, device="cuda") -> DeviceField:
     return _device_field(spec, str(torch.device(device)))

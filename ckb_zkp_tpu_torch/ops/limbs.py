@@ -54,7 +54,7 @@ def limbs_to_ints(arr) -> list[int]:
     ]
 
 
-def to_torch(arr, device="cpu") -> torch.Tensor:
+def to_torch(arr, device="cuda") -> torch.Tensor:
     """numpy/array-like uint32 16-bit limbs -> int32 tensor on `device`."""
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)

@@ -3,7 +3,8 @@
 Port of the reference's `ops/msm.py` `DeviceCurveGroup` for G1 (over Fq)
 and G2 (over Fq2): point/scalar encoding (`:431-536`), `msm` (`:539-586`)
 with the RCB Pippenger `_msm_rcb` (`:741-814`), and the setup's
-`fixed_base_msm` (`:982-1045`) with its host-built window table (`:1047`).
+`fixed_base_msm` (`:982-1045`, K6 per window as `_fixed_base_rcb`,
+`:901-955`) with its host-built window table (`:1047`).
 
 Per window the MSM sorts the points by digit, runs K2 over the sorted
 packed affine leaves (every within-block prefix W and block totals T),
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .._reference import AffinePoint
+from ..host.curves import AffinePoint
 from .cuda_rcb import pack_limbs_flag, scan_prefix_add, scan_prefix_madd, scan_total_add
 from .ec import DeviceFq2, point_select
 from .field import device_field
@@ -130,7 +131,7 @@ def _scale_pow2_minus1(rg, p, c: int):
 class DeviceCurveGroup:
     """Torch view of one curve group (G1 over Fq, or G2 over Fq2)."""
 
-    def __init__(self, curve, group: str, device="cpu"):
+    def __init__(self, curve, group: str, device="cuda"):
         self.curve = curve
         self.group = group
         self.device = torch.device(device)
@@ -286,7 +287,14 @@ class DeviceCurveGroup:
         """[s_i * base] as affine-encoded points. Padding follows the
         reference's accelerator rule (`ops/msm.py:1002-1011`): G1 pads to a
         multiple of COL_ALIGN from COL_ALIGN up, G2 (and small G1) to a power
-        of two; padding rows (zero scalars) are infinity."""
+        of two; padding rows (zero scalars) are infinity.
+
+        Each window accumulates with K6 (`rg.madd`) on the gathered table
+        rows (X[w][d], Y[w][d], d == 0), as `_fixed_base_rcb` does through
+        `_wide_madd` (`ops/msm.py:917-925, 953`): the d = 0 row is
+        infinity and leaves the accumulator as it is. The reference selects
+        rows with a one-hot int8 matmul (XLA work, not a kernel); the port
+        gathers. The projective output is normalized once."""
         rg = self.rg
         n = scalars.shape[0]
         if self.group == "g1" and n >= COL_ALIGN:
@@ -296,23 +304,22 @@ class DeviceCurveGroup:
         sc = scalars.to(torch.int64)
         if np2 != n:
             sc = torch.cat([sc, sc.new_zeros((np2 - n, sc.shape[1]))])
-        X, Y, Z = table
+        X, Y, _ = table
         acc = rg.identity((np2,))
         for w in range(self.nwindows):
             bitpos = w * self.c
             d = (sc[:, bitpos // BASE_BITS] >> (bitpos % BASE_BITS)) & (self.nb - 1)
-            # gather form of _fixed_base_rcb (ops/msm.py:917-925); the d = 0
-            # entry is infinity and promotes to the identity (0 : 1 : 0)
-            acc = rg.add(acc, rg.from_affine_enc((X[w][d], Y[w][d], Z[w][d])))
+            acc = rg.madd(acc, (X[w][d], Y[w][d], d == 0))
         out = self._normalize_proj(acc)
         return out if pad_output else tuple(c[:n] for c in out)
 
     def _normalize_proj(self, p):
-        """Projective -> affine-encoded Jacobian (Z in {0, one}); the
-        inverse is Fermat on K1 (0 maps to 0)."""
+        """Projective -> affine-encoded Jacobian (Z in {0, one}); the Z
+        inverses are one batch inversion (0 maps to 0), as the reference's
+        `_normalize_proj` (`ops/msm.py:957-967`)."""
         cf = self.cf
         X, Y, Z = p
-        zinv = cf.inv(Z)
+        zinv = cf.batch_inv(Z)
         xy = cf.mul(torch.stack([X, Y]), zinv)
         inf = cf.is_zero(Z)
         z = point_select(cf, inf, (cf.zeros(inf.shape),), (cf.ones(inf.shape),))[0]
@@ -322,7 +329,7 @@ class DeviceCurveGroup:
 _GROUPS: dict = {}
 
 
-def device_group(curve, group: str, device="cpu") -> DeviceCurveGroup:
+def device_group(curve, group: str, device="cuda") -> DeviceCurveGroup:
     key = (curve.name, group, str(torch.device(device)))
     g = _GROUPS.get(key)
     if g is None:

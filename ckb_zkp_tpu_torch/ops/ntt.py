@@ -1,8 +1,9 @@
 """Radix-2 NTT over a power-of-two subgroup of Fr^*.
 
 Port of the reference's `ops/ntt.py` `Domain` (`:46-206`): ntt, intt,
-coset_ntt, coset_intt (coset generator `spec.generator`, as arkworks) and
-`divide_by_vanishing_poly_on_coset`. The transform is the reference's
+coset_ntt, coset_intt (coset generator `spec.generator`, as arkworks),
+`divide_by_vanishing_poly_on_coset` and, for the setup, the Lagrange
+coefficients at a point (`:206-247`). The transform is the reference's
 iterative decimation-in-frequency ladder with one bit-reversal gather at
 the end; every twiddle product goes through K1. Outputs are canonical, so
 they are bit-equal to the reference's four-step transform
@@ -100,13 +101,39 @@ class Domain:
         zinv = pow(pow(self.coset_g, self.n, p) - 1, -1, p)
         return self.df.mul(evals, self.df.const(zinv, (1,)))
 
+    def evaluate_vanishing_polynomial(self, tau: int) -> int:
+        p = self.df.spec.modulus
+        return (pow(tau, self.n, p) - 1) % p
+
+    def evaluate_all_lagrange_coefficients(self, tau: int) -> torch.Tensor:
+        """[L_i(tau)]_{i<n} as (n, L) Montgomery limbs: (tau^n - 1) w^i /
+        (n (tau - w^i)), one batch inversion of the denominators; for tau
+        inside the domain, L_i = delta_i (reference `ops/ntt.py:209-247`;
+        its four-step route from 2^23 gives the same canonical values)."""
+        df, n = self.df, self.n
+        p = df.spec.modulus
+        t = tau % p
+        pow_w = self._pows[self.omega]
+        if pow(t, n, p) == 1:
+            idx, cur = 0, 1
+            while cur != t:
+                idx += 1
+                cur = cur * self.omega % p
+            out = df.zeros((n,))
+            out[idx] = df.ones(())
+            return out
+        zt_over_n = self.evaluate_vanishing_polynomial(t) * self.n_inv % p
+        num = df.mul(pow_w, df.const(zt_over_n, (1,)))
+        den = df.sub(df.const(t, (1,)).expand(n, -1), pow_w)
+        return df.mul(num, df.batch_inv(den))
+
 
 @functools.lru_cache(maxsize=None)
 def _get_domain(spec, n: int, device: str) -> Domain:
     return Domain(device_field(spec, device), n)
 
 
-def get_domain(spec, n: int, device="cpu") -> Domain:
+def get_domain(spec, n: int, device="cuda") -> Domain:
     """The one Domain of size n on `device` (reference `ops/ntt.py:250`):
     its index and power tables are built once per size, not per prove."""
     return _get_domain(spec, n, str(torch.device(device)))

@@ -7,9 +7,9 @@ formulas are the reference's step for step, so equal inputs give
 bit-equal projective outputs; independent field multiplies of one step run
 as one stacked batch (one K1 launch on the card), which changes no value.
 
-On CUDA tensors `add` is K5 (`cuda_rcb.rcb_add`) at every batch size;
-`double`, `madd` and `neg` stay torch compositions over the port's field,
-as they were XLA in the reference.
+On CUDA tensors `add` is K5 (`cuda_rcb.rcb_add`) and `madd` is K6
+(`cuda_rcb.rcb_madd`) at every batch size; `double` and `neg` stay torch
+compositions over the port's field, as they were XLA in the reference.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import functools
 import torch
 
 from .cuda_field import kernel_consts
-from .cuda_rcb import rcb_add
+from .cuda_rcb import rcb_add, rcb_madd
 from .ec import DeviceFq2, point_select
 from .field import DeviceField
 
@@ -127,6 +127,12 @@ class RcbGroup:
 
     def madd(self, p, q_affine):
         """p + Q where Q = (x2, y2, inf_mask) may be the identity."""
+        if self.cf.is_plain:
+            return self.madd_formula(p, q_affine)
+        return rcb_madd(self, p, q_affine)
+
+    def madd_formula(self, p, q_affine):
+        """Alg. 8 and the flag select as torch ops (K6's plain version)."""
         x2, y2, inf2 = q_affine
         out = self.madd_noinf(p, (x2, y2))
         return point_select(self.cf, inf2, p, out)

@@ -1,14 +1,15 @@
-"""Time and profile the port's Groth16 prove on one CUDA card.
+"""Time and profile the port's Groth16 prove (or setup) on one CUDA card.
 
-    python -m ckb_zkp_tpu_torch.profile_prove [--log2 18] [--reps 10]
+    python -m ckb_zkp_tpu_torch.profile_prove [--log2 20] [--reps 10] [--setup]
 
 Runs the port's setup for a (2^log2 - 2)-constraint square chain, one
 warm-up prove, `reps` timed proves (median and quartiles of the wall
 clock, each ending in a synchronize; the device memory held before and
-after them), then one prove under
-torch.profiler: the device's busy time (sum of kernel self times), its
-idle share of the wall clock, and the kernels by device time. Prints the
-card's name and power limit beside every number. Needs a CUDA card.
+after them), then one prove under torch.profiler: the device's busy time
+(sum of kernel self times), its idle share of the wall clock, and the
+kernels by device time. With `--setup` the timed and profiled runs are
+setups instead (no prove). Prints the card's name and power limit beside
+every number. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import time
 
 import torch
 
-from ._reference import get_curve, square_chain_shape
+from .bench_circuits import square_chain_shape
+from .host.pairing import get_curve
 from .schemes import groth16
 
 
@@ -33,48 +35,30 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log2", type=int, default=18)
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_prove: needs a CUDA card", file=sys.stderr)
-        return 2
-    from torch.profiler import ProfilerActivity, profile
-
-    card = _card()
-    curve = get_curve("bn254")
-    fr = curve.fr.modulus
-    shape = square_chain_shape((1 << args.log2) - 2, fr, seed=7)
-    params = groth16.generate_parameters_from_shape(
-        shape, curve, 3, 5, 7, 11, 13, device="cuda")
-    r, s = 17, 19
-    groth16.create_proof_from_shape(params, shape, r, s)
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
+def _timed(run, reps: int, card: str, what: str, log2: int) -> None:
     walls, stages = [], []
-    for _ in range(args.reps):
+    for _ in range(reps):
         st: dict = {}
         t0 = time.perf_counter()
-        groth16.create_proof_from_shape(params, shape, r, s, timings=st)
+        run(st)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         stages.append(st)
     q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
-    print(json.dumps({"prove_s": {"n": len(walls), "median": statistics.median(walls),
-                                  "q1": q[0], "q3": q[2], "min": min(walls),
-                                  "max": max(walls), "all": walls},
-                      "card": card, "log2": args.log2}))
-    print(json.dumps({"device_memory_held_bytes": {
-        "after_warmup": held, "after_timed": torch.cuda.memory_allocated()},
-        "card": card}))
+    print(json.dumps({f"{what}_s": {"n": len(walls), "median": statistics.median(walls),
+                                    "q1": q[0], "q3": q[2], "min": min(walls),
+                                    "max": max(walls), "all": walls},
+                      "card": card, "log2": log2}))
     med = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
     print(json.dumps({"stage_median_s": med, "card": card}))
 
+
+def _profiled(run, card: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        groth16.create_proof_from_shape(params, shape, r, s)
+        run({})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -84,11 +68,51 @@ def main() -> int:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
-    print(json.dumps({"profiled_prove_s": wall, "device_busy_s": busy,
+    print(json.dumps({"profiled_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1 - busy / wall,
                       "kernel_launches": len(kernels), "card": card}))
     for name, (n, ms) in top:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--setup", action="store_true",
+                    help="time and profile the setup instead of the prove")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_prove: needs a CUDA card", file=sys.stderr)
+        return 2
+
+    card = _card()
+    curve = get_curve("bn254")
+    fr = curve.fr.modulus
+    shape = square_chain_shape((1 << args.log2) - 2, fr, seed=7)
+
+    def setup(st):
+        return groth16.generate_parameters_from_shape(
+            shape, curve, 3, 5, 7, 11, 13, device="cuda", timings=st)
+
+    params = setup({})
+    if args.setup:
+        _timed(setup, args.reps, card, "setup", args.log2)
+        _profiled(setup, card)
+        return 0
+    r, s = 17, 19
+
+    def prove(st):
+        return groth16.create_proof_from_shape(params, shape, r, s, timings=st)
+
+    prove({})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    _timed(prove, args.reps, card, "prove", args.log2)
+    print(json.dumps({"device_memory_held_bytes": {
+        "after_warmup": held, "after_timed": torch.cuda.memory_allocated()},
+        "card": card}))
+    _profiled(prove, card)
     return 0
 
 

@@ -1,20 +1,14 @@
-"""Groth16 on PyTorch/CUDA: setup, prover, and the reference's verifier.
+"""Groth16 on PyTorch/CUDA: setup, prover and verifier.
 
-Parity with the reference package's `schemes/groth16` (setup and the
-device branch of the prover); the verifier and the key/proof types are the
-reference's own jax-free files, loaded through `ckb_zkp_tpu_torch._reference`.
+Parity with the reference package's `schemes/groth16`: the setup (device
+and host branches), the device branch of the prover, and the verifier and
+key/proof types (the port's copies of the reference's host-int files).
 """
 
-from ..._reference import (
-    Parameters,
-    PreparedVerifyingKey,
-    Proof,
-    VerifyKey,
-    prepare_verifying_key,
-    verify_proof,
-)
 from .generator import generate_parameters_from_shape
 from .prover import create_proof_from_shape
+from .types import Parameters, PreparedVerifyingKey, Proof, VerifyKey
+from .verifier import prepare_verifying_key, verify_proof
 
 __all__ = [
     "Parameters",

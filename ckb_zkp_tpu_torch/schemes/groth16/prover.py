@@ -15,10 +15,10 @@ import time
 import numpy as np
 import torch
 
-from ..._reference import Proof
 from ...ops.limbs import ints_to_limbs
 from ...ops.msm import device_group
 from .qap import qap_matrices
+from .types import Proof
 
 
 class Stages:

@@ -1,11 +1,15 @@
 """R1CS -> QAP reduction shared by the port's setup and prover.
 
 Port of the reference's `schemes/groth16/qap.py`: `domain_size_for`
-(`:23`), the host-int instance map `evaluations_at_host` (`:143-170`) and
-the witness map (`:172-215`, with the `out_len` padding of
+(`:23`), `QapMatrices` with `host_mode` (`:59-100`), the host-int instance
+map `evaluations_at_host` (`:143-170`), the device instance map
+`evaluations_at` (`:289-295`: Lagrange coefficients and three transpose
+products) and the witness map (`:172-215`, with the `out_len` padding of
 `witness_map_fused`, `:265-287`). The domain has size
 next_pow2(num_constraints + num_inputs); rows [nc, nc + ni) of A carry the
-input-binding identity entries, exactly as the reference.
+input-binding identity entries, exactly as the reference. One device COO
+per matrix and one domain serve the setup's transpose products and the
+prover's products.
 """
 
 from __future__ import annotations
@@ -26,11 +30,11 @@ def domain_size_for(shape) -> int:
     return n
 
 
-def qap_matrices(shape, spec, device="cpu") -> "QapMatrices":
+def qap_matrices(shape, spec, device="cuda") -> "QapMatrices":
     """The shape's QapMatrices on `device`, built once and kept on the
     shape (as the reference keeps its witness limbs, `r1cs/system.py:217`),
-    so repeated proves of one circuit reuse its device matrices and leave
-    with the shape."""
+    so the setup and repeated proves of one circuit share its device
+    matrices and domain, and they leave with the shape."""
     cache = getattr(shape, "_torch_qap_cache", None)
     if cache is None:
         cache = shape._torch_qap_cache = {}
@@ -42,11 +46,16 @@ def qap_matrices(shape, spec, device="cpu") -> "QapMatrices":
 
 
 class QapMatrices:
-    """COO matrices for A (input-augmented), B, C over the QAP domain."""
+    """COO matrices for A (input-augmented), B, C over the QAP domain.
 
-    def __init__(self, shape, spec, device="cpu"):
+    host_mode=True keeps the host COO arrays only (the host-int instance
+    map); otherwise the device matrices and the domain are built on first
+    use (`device_parts`)."""
+
+    def __init__(self, shape, spec, device="cuda", host_mode: bool = False):
         self.df = device_field(spec, device)
         self.spec = spec
+        self.host_mode = host_mode
         self.m = domain_size_for(shape)
         nc, ni = shape.num_constraints, shape.num_inputs
         nv = shape.num_variables
@@ -63,8 +72,9 @@ class QapMatrices:
         self._dev = None
 
     def device_parts(self):
-        """Device matrices and domain, built on first use (setup only needs
-        the host instance map)."""
+        """((A, B, C) device COOs, domain), built on first use."""
+        if self.host_mode:
+            raise ValueError("a host-mode QapMatrices has no device matrices")
         if self._dev is None:
             coos = tuple(
                 DeviceCoo(self.df, r, c, k, self.m, self.num_variables)
@@ -72,6 +82,19 @@ class QapMatrices:
             )
             self._dev = coos, get_domain(self.spec, self.m, self.df.device)
         return self._dev
+
+    def evaluations_at(self, t: int, mark=None):
+        """u_i(t), v_i(t), w_i(t) as (num_cols_pad, L) Montgomery limbs, on
+        the device; the padding columns are zero. `mark`, when given, is
+        called with "lagrange" and "rmatvec" as each stage ends."""
+        (a, b, c), dom = self.device_parts()
+        lag = dom.evaluate_all_lagrange_coefficients(t)
+        if mark:
+            mark("lagrange")
+        out = tuple(mat.rmatvec_padded(lag) for mat in (a, b, c))
+        if mark:
+            mark("rmatvec")
+        return out
 
     def evaluations_at_host(self, t: int):
         """u_i(t), v_i(t), w_i(t) as host ints (setup instance map)."""

@@ -40,10 +40,10 @@ def test_field_ops_match_reference_and_host(fieldsel):
     spec = getattr(CURVE, fieldsel)
     p = spec.modulus
     ref = ref_device_field(spec)
-    f = DeviceField(spec)
+    f = DeviceField(spec, "cpu")
     xs, ys = _values(spec, 64, 1), _values(spec, 64, 2)[::-1]
     A_np, B_np = np.asarray(ref.encode(xs)), np.asarray(ref.encode(ys))
-    A, B = tl.to_torch(A_np), tl.to_torch(B_np)
+    A, B = tl.to_torch(A_np, "cpu"), tl.to_torch(B_np, "cpu")
     assert np.array_equal(tl.to_numpy(f.encode(xs)), A_np)
     for name in ("mul", "add", "sub"):
         got = tl.to_numpy(getattr(f, name)(A, B))
@@ -51,7 +51,7 @@ def test_field_ops_match_reference_and_host(fieldsel):
     assert np.array_equal(tl.to_numpy(f.neg(A)), _ref(ref.neg(A_np)))
     assert np.array_equal(tl.to_numpy(f.sqr(A)), _ref(ref.sqr(A_np)))
     assert np.array_equal(tl.to_numpy(f.from_mont(A)), _ref(ref.from_mont(A_np)))
-    raw = tl.to_torch(tl.ints_to_limbs(xs, f.L))
+    raw = tl.to_torch(tl.ints_to_limbs(xs, f.L), "cpu")
     assert torch.equal(f.to_mont(raw), A)
     assert f.decode(f.mul(A, B)) == [x * y % p for x, y in zip(xs, ys)]
     assert f.decode(f.inv(A[:6])) == [pow(x, -1, p) if x else 0 for x in xs[:6]]
@@ -65,7 +65,7 @@ def test_field_ops_match_reference_and_host(fieldsel):
 def test_k1_plain_matches_pallas_rows(fieldsel):
     spec = getattr(CURVE, fieldsel)
     ref = ref_device_field(spec)
-    f = DeviceField(spec)
+    f = DeviceField(spec, "cpu")
     A_np = np.asarray(ref.encode(_values(spec, 64, 3)))
     B_np = np.asarray(ref.encode(_values(spec, 64, 4)))
     out = _mont_mul_rows(
@@ -75,15 +75,16 @@ def test_k1_plain_matches_pallas_rows(fieldsel):
         tuple(int(v) for v in ref.nprime_limbs),
     )
     want = _ref(jnp.stack(out, axis=0).T)
-    got = mont_mul_plain(f, tl.to_torch(A_np), tl.to_torch(B_np))
+    got = mont_mul_plain(f, tl.to_torch(A_np, "cpu"), tl.to_torch(B_np, "cpu"))
     assert np.array_equal(tl.to_numpy(got), want)
     # the wrapper takes the plain version for CPU tensors, with broadcasting
     one = f.ones(())
-    assert torch.equal(mont_mul(f, tl.to_torch(A_np), one), tl.to_torch(A_np))
+    A = tl.to_torch(A_np, "cpu")
+    assert torch.equal(mont_mul(f, A, one), A)
 
 
 def test_k1_wrapper_refuses_non_cpu_tensors_without_a_kernel():
-    f = DeviceField(CURVE.fq)
+    f = DeviceField(CURVE.fq, "cpu")
     a = torch.empty((4, f.L), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         mont_mul(f, a, a)
@@ -92,12 +93,12 @@ def test_k1_wrapper_refuses_non_cpu_tensors_without_a_kernel():
 def test_fq2_matches_reference():
     fq = ref_device_field(CURVE.fq)
     ref2 = RefFq2(fq)
-    f2 = DeviceFq2(DeviceField(CURVE.fq))
+    f2 = DeviceFq2(DeviceField(CURVE.fq, "cpu"))
     xs = _values(CURVE.fq, 64, 5)
     ys = _values(CURVE.fq, 64, 6)[::-1]
     A_np = np.asarray(fq.encode(xs)).reshape(32, 2, fq.L)
     B_np = np.asarray(fq.encode(ys)).reshape(32, 2, fq.L)
-    A, B = tl.to_torch(A_np), tl.to_torch(B_np)
+    A, B = tl.to_torch(A_np, "cpu"), tl.to_torch(B_np, "cpu")
     assert np.array_equal(tl.to_numpy(f2.mul(A, B)), _ref(ref2.mul(A_np, B_np)))
     assert np.array_equal(tl.to_numpy(f2.add(A, B)), _ref(ref2.add(A_np, B_np)))
     assert np.array_equal(tl.to_numpy(f2.sub(A, B)), _ref(ref2.sub(A_np, B_np)))
@@ -110,7 +111,7 @@ def test_limb_converters_round_trip():
     xs = _values(CURVE.fq, 16, 7)
     arr = tl.ints_to_limbs(xs, 16)
     assert arr.dtype == np.uint32 and tl.limbs_to_ints(arr) == xs
-    t = tl.to_torch(arr)
+    t = tl.to_torch(arr, "cpu")
     assert t.dtype == torch.int32 and np.array_equal(tl.to_numpy(t), arr)
     assert tl.limbs_to_ints(t) == xs
     assert tl.limbs_to_ints(tl.int_to_limbs(p - 1, 16)[None]) == [p - 1]

@@ -11,8 +11,9 @@ from ckb_zkp_tpu.host.pairing import get_curve
 from ckb_zkp_tpu.ops.msm import device_group as ref_device_group
 from ckb_zkp_tpu.schemes import groth16 as ref_groth16
 from ckb_zkp_tpu.schemes.groth16.qap import QapMatrices as RefQap
-from ckb_zkp_tpu_torch import _reference
+from ckb_zkp_tpu_torch import bench_circuits as port_circuits
 from ckb_zkp_tpu_torch.convert import params_from_reference
+from ckb_zkp_tpu_torch.host.pairing import get_curve as port_curve
 from ckb_zkp_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from ckb_zkp_tpu_torch.ops import ntt
 from ckb_zkp_tpu_torch.ops.msm import device_group
@@ -43,7 +44,8 @@ def ref_params(shape):
 @pytest.fixture(scope="module")
 def port_params(shape):
     return groth16.generate_parameters_from_shape(
-        _reference.square_chain_shape(62, FR), _reference.get_curve("bn254"), *TOXIC)
+        port_circuits.square_chain_shape(62, FR), port_curve("bn254"), *TOXIC,
+        device="cpu")
 
 
 @pytest.mark.parametrize("circuit", ["square_chain", "product"])
@@ -51,7 +53,7 @@ def test_witness_map_matches_host(circuit):
     shp = square_chain_shape(62, FR) if circuit == "square_chain" else \
         product_circuit_shape(20, FR)
     want = RefQap(shp, CURVE.fr, host_mode=True).witness_map_host(shp.full_assignment())
-    q = QapMatrices(shp, CURVE.fr)
+    q = QapMatrices(shp, CURVE.fr, "cpu")
     z = shp.full_assignment()
     z_can = torch.as_tensor(ints_to_limbs(z, 16).astype(np.int32))
     out_len = max(q.num_cols_pad, q.m)
@@ -64,8 +66,8 @@ def test_witness_map_matches_host(circuit):
 def test_setup_matches_reference_host_mode(ref_params, port_params, shape):
     ni, na = shape.num_inputs, shape.num_aux
     assert port_params.padded_queries and not ref_params.padded_queries
-    g1 = device_group(port_params.curve, "g1")
-    g2 = device_group(port_params.curve, "g2")
+    g1 = device_group(port_params.curve, "g1", "cpu")
+    g2 = device_group(port_params.curve, "g2", "cpu")
     rg1 = ref_device_group(CURVE, "g1")
     rg2 = ref_device_group(CURVE, "g2")
     for name, dg, rdg, offset in (
@@ -100,8 +102,8 @@ def test_proof_matches_reference(ref_params, port_params, shape, key, r, s):
     own setup (padded layout), whose queries equal the reference's (test
     above), it does too."""
     want = _ref_proof(ref_params, shape, r, s)
-    params = params_from_reference(ref_params) if key == "reference" else port_params
-    shp = _reference.square_chain_shape(62, FR)
+    params = params_from_reference(ref_params, "cpu") if key == "reference" else port_params
+    shp = port_circuits.square_chain_shape(62, FR)
     stages = {}
     proof = groth16.create_proof_from_shape(params, shp, r, s, timings=stages)
     # the prover used (and kept) the shape's one QapMatrices
@@ -124,8 +126,8 @@ def test_repeated_witness_maps_reuse_device_tables():
     """The shape's matrices, the domain and its power tables are built once
     and kept (per shape, and per domain size), so a prover that keeps
     proving one circuit holds a fixed amount of device memory."""
-    shp = _reference.square_chain_shape(62, FR)
-    fr = _reference.get_curve("bn254").fr
+    shp = port_circuits.square_chain_shape(62, FR)
+    fr = port_curve("bn254").fr
     q = qap_matrices(shp, fr, "cpu")
     z_can = torch.as_tensor(ints_to_limbs(shp.full_assignment(), 16).astype(np.int32))
     first = q.witness_map(z_can, q.m)

@@ -3,7 +3,7 @@ fixed-base MSM against the reference. MSM results are compared as affine
 points: the reference sorts unstably, so projective coordinates may differ.
 
 The 16-bit-window branch (N >= 2^18) is left to the card: its 65536-bucket
-tail is too heavy for the plain path here; chip_smoke.py's 2^18 prove runs
+tail is too heavy for the plain path here; chip_smoke.py's 2^20 prove runs
 it."""
 
 import numpy as np
@@ -50,23 +50,23 @@ def test_msm_matches_reference_msm(group):
     P = rdg.encode_points(pts)
     S = rdg.encode_scalars(sc)
     want = rdg.decode_point(rdg.msm(P, S))
-    dg = device_group(CURVE, group)
+    dg = device_group(CURVE, group, "cpu")
     extra = dg.encode_points(pts[:8])
-    tP = tuple(torch.cat([to_torch(np.asarray(c)), e]) for c, e in zip(P, extra))
-    got = dg.decode_point(dg.msm(tP, to_torch(S)))
+    tP = tuple(torch.cat([to_torch(np.asarray(c), "cpu"), e]) for c, e in zip(P, extra))
+    got = dg.decode_point(dg.msm(tP, to_torch(S, "cpu")))
     assert _affine(got) == _affine(want)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_msm_matches_host_msm(group):
     pts, sc = _inputs(group, 1000, 2)
-    dg = device_group(CURVE, group)
+    dg = device_group(CURVE, group, "cpu")
     got = dg.decode_point(dg.msm(dg.encode_points(pts), dg.encode_scalars(sc)))
     assert _affine(got) == _affine(dg.host_group.msm(pts, sc))
 
 
 def test_msm_window_bits_follow_reference():
-    dg = device_group(CURVE, "g1")
+    dg = device_group(CURVE, "g1", "cpu")
     rdg = ref_device_group(CURVE, "g1")
     for n in (1, 1 << 17, (1 << 18) - 1, 1 << 18, 1 << 20):
         assert dg._msm_window_bits(n) == rdg._msm_window_bits(n)
@@ -80,7 +80,7 @@ def test_fixed_base_msm_matches_host_mul(group):
     rng = np.random.default_rng(3)
     sc = [0, 1, 2, r - 1] + [int(k) for k in rng.integers(1, 1 << 62, size=8)]
     sc.append(sc[-1] * (1 << 190) % r)
-    dg = device_group(CURVE, group)
+    dg = device_group(CURVE, group, "cpu")
     table = dg.fixed_base_table(gen)
     out = dg.fixed_base_msm(table, dg.encode_scalars(sc), pad_output=True)
     assert out[0].shape[0] == 16  # pow2 padding, as the reference's rule

@@ -1,31 +1,45 @@
-"""The port stands alone: it runs without ever importing jax, and its CUDA
-sources are shipped and built for sm_90a."""
+"""The port stands alone: it sets up, proves and verifies without ever
+importing jax or loading a file of the JAX package, its entry points run on
+the card unless asked for the CPU, and its CUDA sources are shipped and
+built for sm_90a."""
 
+import inspect
 import os
 import re
 import subprocess
 import sys
 
+import pytest
+
 import ckb_zkp_tpu_torch
-from ckb_zkp_tpu_torch.ops import cuda_build
+from ckb_zkp_tpu_torch import convert
+from ckb_zkp_tpu_torch.ops import cuda_build, field, limbs, msm, ntt
+from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
+JAX_PKG_DIR = os.path.join(REPO, "ckb_zkp_tpu")
 
 _PROVE_WITHOUT_JAX = """
-import sys
+import os, sys
 import ckb_zkp_tpu_torch
-from ckb_zkp_tpu_torch import _reference as R
+from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
+from ckb_zkp_tpu_torch.host.pairing import get_curve
 from ckb_zkp_tpu_torch.schemes import groth16
-curve = R.get_curve("bn254")
-shape = R.square_chain_shape(62, curve.fr.modulus)
-params = groth16.generate_parameters_from_shape(shape, curve, 2, 3, 5, 7, 11)
+curve = get_curve("bn254")
+shape = square_chain_shape(62, curve.fr.modulus)
+params = groth16.generate_parameters_from_shape(
+    shape, curve, 2, 3, 5, 7, 11, device="cpu")
 assert params.domain_size == 64
 proof = groth16.create_proof_from_shape(params, shape, 0, 0)
 pvk = groth16.prepare_verifying_key(curve, params.vk)
 assert groth16.verify_proof(curve, pvk, proof, shape.input_assignment[1:])
 assert "jax" not in sys.modules, "the port imported jax"
 assert "ckb_zkp_tpu" not in sys.modules, "the port imported the JAX package"
+jax_dir = os.path.realpath(sys.argv[1]) + os.sep
+loaded = [name for name, mod in list(sys.modules.items())
+          if os.path.realpath(getattr(mod, "__file__", None) or "").startswith(jax_dir)]
+assert not loaded, f"files of the JAX package were loaded: {loaded}"
 print("PROVED_WITHOUT_JAX")
 """
 
@@ -35,36 +49,70 @@ def test_m64_prove_runs_without_jax():
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run(
-        [sys.executable, "-c", _PROVE_WITHOUT_JAX], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", _PROVE_WITHOUT_JAX, JAX_PKG_DIR], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PROVED_WITHOUT_JAX" in res.stdout
 
 
-def test_no_port_module_imports_jax():
-    pat = re.compile(r"^\s*(import jax|from jax|import ckb_zkp_tpu\b|from ckb_zkp_tpu\b)", re.M)
-    offenders = []
+_IMPORTS_JAX = re.compile(
+    r"^\s*(import jax|from jax|import ckb_zkp_tpu\b|from ckb_zkp_tpu\b)", re.M)
+# a loader that reaches the JAX package's files without importing it
+_LOADS_JAX_FILES = re.compile(
+    r"find_spec\(\s*[\"']ckb_zkp_tpu[\"']|submodule_search_locations|"
+    r"__path__\s*=|spec_from_file_location|\b_reference\b")
+
+
+def _port_sources():
     for root, _, files in os.walk(PKG_DIR):
         for name in files:
             if name.endswith(".py"):
-                path = os.path.join(root, name)
-                with open(path) as f:
-                    if pat.search(f.read()):
-                        offenders.append(os.path.relpath(path, REPO))
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        if pat.search(f.read()):
-            offenders.append("chip_smoke.py")
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_port_module_imports_jax():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            src = f.read()
+        if _IMPORTS_JAX.search(src) or _LOADS_JAX_FILES.search(src):
+            offenders.append(os.path.relpath(path, REPO))
     assert offenders == []
+    assert not os.path.exists(os.path.join(PKG_DIR, "_reference.py"))
+
+
+def test_source_scan_rejects_the_alias_loader():
+    for src in ('spec = importlib.util.find_spec("ckb_zkp_tpu")',
+                "mod.__path__ = [root]",
+                "from ckb_zkp_tpu_torch._reference import get_curve"):
+        assert _LOADS_JAX_FILES.search(src), src
+    assert not _LOADS_JAX_FILES.search("from .host.pairing import get_curve")
+
+
+@pytest.mark.parametrize("fn,arg", [
+    (field.DeviceField.__init__, "device"), (field.device_field, "device"),
+    (ntt.get_domain, "device"), (msm.DeviceCurveGroup.__init__, "device"),
+    (msm.device_group, "device"), (limbs.to_torch, "device"),
+    (convert.params_from_reference, "device"), (qap.qap_matrices, "device"),
+    (qap.QapMatrices.__init__, "device"),
+    (generator.generate_parameters_from_shape, "device"),
+])
+def test_entry_points_default_to_the_card(fn, arg):
+    assert inspect.signature(fn).parameters[arg].default == "cuda"
 
 
 def test_cuda_sources_and_build_command():
     for name in cuda_build.SOURCES + cuda_build.HEADERS:
         assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, name)), name
-    cmd = cuda_build.build_command("/dev/null")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and all(
-        os.path.join(cuda_build.CSRC_DIR, s) in cmd for s in cuda_build.SOURCES)
+    for src in cuda_build.SOURCES:
+        cmd = cuda_build.compile_command(src, "/dev/null")
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        assert os.path.join(cuda_build.CSRC_DIR, src) in cmd
+    link = cuda_build.link_command(["a.o", "b.o"], "/dev/null")
+    assert "-shared" in link and "arch=compute_90a,code=sm_90a" in link
     assert cuda_build.BUILD_DIR.startswith(PKG_DIR)
     assert set(cuda_build.COUNTS) == {
-        "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add", "rcb_add"}
+        "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
+        "rcb_add", "rcb_madd"}

@@ -29,7 +29,7 @@ def _points(group, n, seed):
 
 
 def _t(pt):
-    return tuple(to_torch(np.asarray(c)) for c in pt)
+    return tuple(to_torch(np.asarray(c), "cpu") for c in pt)
 
 
 def _same(ref_pt, port_pt):
@@ -45,7 +45,7 @@ def _affine(pts):
 
 def _groups(group):
     rdg = ref_device_group(CURVE, group)
-    return rdg, ref_rcb_group(rdg), device_group(CURVE, group)
+    return rdg, ref_rcb_group(rdg), device_group(CURVE, group, "cpu")
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -91,7 +91,8 @@ def test_scan_prefix_madd_matches_reference_fallback(group, n, B):
     X, Y, inf = _leaves(rdg, group, n, 21 + n)
     w_get, T = ref_msm._scan_prefix_madd(rrg, (X, Y, jnp.asarray(inf)), B)
     Wref = w_get(jnp.arange(n))
-    xw, yw = cuda_rcb.pack_limbs_flag(dg.rg, to_torch(X), to_torch(Y), torch.as_tensor(inf))
+    xw, yw = cuda_rcb.pack_limbs_flag(dg.rg, to_torch(X, "cpu"), to_torch(Y, "cpu"),
+                                     torch.as_tensor(inf))
     W, Tp = cuda_rcb.scan_prefix_madd(dg.rg, xw, yw, B)
     assert _same(Wref, W) and _same(T, Tp)
     assert torch.equal(cuda_rcb.unpack_leaves(dg.rg, xw, yw)[2], torch.as_tensor(inf))
@@ -122,3 +123,47 @@ def test_scan_add_and_totals_match_reference_full_prefix(group):
     tail = cuda_rcb.scan_total_add(rg, tuple(c[:5] for c in tp), 5)
     assert all(torch.equal(a, b[4:5]) for a, b in zip(tail, W))
     assert _same(tuple(c[-1:] for c in P2), Ttop)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_madd_k6_plain_matches_reference_edge_cases(group):
+    """K6's plain version (the port's RcbGroup.madd on CPU tensors) against
+    the reference's RcbGroup.madd, bit for bit: general projective
+    accumulators, P = Q, P = -Q, identity accumulators and flagged leaves;
+    and against the host group."""
+    rdg, rrg, dg = _groups(group)
+    rg, host = dg.rg, rdg.host_group
+    pts = _points(group, 6, 41)
+    a, b, inf = pts[0], pts[1], host.infinity
+    left = pts + [a, b, inf, a, inf]
+    right = pts[::-1] + [a, host.neg(b), a, inf, inf]
+    Pa = rrg.from_affine_enc(rdg.encode_points(left))
+    Xq, Yq, Zq = rdg.encode_points(right)
+    rinf = rdg.cf.is_zero(Zq)
+    leaves = (to_torch(Xq, "cpu"), to_torch(Yq, "cpu"),
+              torch.as_tensor(np.array(rinf)))
+    for P in (Pa, rrg.add(Pa, Pa)):  # Z = 1 (or 0), and a general Z
+        want = rrg.madd(P, (Xq, Yq, rinf))
+        got = cuda_rcb.rcb_madd(rg, _t(P), leaves)
+        assert _same(want, got)
+        assert _same(want, rg.madd(_t(P), leaves))
+        assert _same(want, cuda_rcb.rcb_madd_plain(rg, _t(P), leaves))
+    got = dg.decode_points_host(rg.to_jacobian(rg.madd(_t(Pa), leaves)))
+    assert _affine(got) == _affine(host.add(x, y) for x, y in zip(left, right))
+    # one leaf broadcast against the batch, as rcb_madd_pallas broadcasts
+    one = tuple(c[3:4] for c in leaves)
+    full = tuple(c[3:4].expand(c.shape) for c in leaves)
+    assert all(torch.equal(x, y) for x, y in
+               zip(rg.madd(_t(Pa), one), rg.madd(_t(Pa), full)))
+
+
+def test_madd_k6_wrapper_refuses_non_cpu_tensors_without_a_kernel():
+    """The wrapper takes the plain version only for CPU tensors: any other
+    tensor goes to the kernel, whose operand checks refuse a non-CUDA one
+    (after broadcasting the flags against the points)."""
+    dg = device_group(CURVE, "g2", "cpu")
+    pt = tuple(torch.empty((4, 2, 16), dtype=torch.int32, device="meta")
+               for _ in range(3))
+    flags = torch.zeros((1,), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_rcb.rcb_madd(dg.rg, pt, (pt[0][:1], pt[1], flags))
