@@ -10,23 +10,33 @@ process per source, in parallel; (3) every kernel of the setup's and the
 prover's paths (K1-K6) against its plain PyTorch version on the same CUDA
 tensors, bit-exact, with both times: at small shapes with edge values, then
 at the shapes the slice gives each kernel (K6: the setup's fixed-base
-width; K1-K5: the prove's shapes), each beside its bound; and the port's
-MSM against the host-int MSM on a small input; (4) a 2^14 setup check: the
+width; K1-K5: the prove's shapes), each beside its bound; the Jacobian
+engine's K8, K9a, K9b and K9c the same way (edge cases P = Q, P = -Q,
+identity on each side and flagged leaves against the host group, then the
+shapes of its 2^log2 setup and prove); and the port's MSM on both engines
+against the host-int MSM on a small input; (4) a 2^14 setup check: the
 device instance map against the host ints, and the device-branch queries
 against the host-mode queries point for point; (5) the slice: the device
 setup of a (2^log2 - 2)-constraint square chain with its stage times, one
 warm-up and one timed prove, the verifier's verdict on the proof and on a
 tampered public input, the kernel launch counts of the setup (K6) and of
 the timed prove (K1-K5), and a check that the timed prove leaves no device
-memory behind.
+memory behind; (6) the same setup and prove on the Jacobian MSM engine
+(`_use_rcb = False` on the two cached device groups, restored after):
+every query equal to the RCB setup's limb for limb on the rows both hold
+(the others at infinity), the proof equal to the RCB proof for the same
+(r, s), the verifier's verdicts, and K9a launched by that setup and K8,
+K9b and K9c by that prove.
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
 once; an Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s and its 32-bit
 multiply instructions (an 8-word CIOS product is 2 * 8^2 + 8 word
 products, each a low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD
-per SM per clock at the SM's maximum clock. No single PyTorch call computes
-any of these functions, so `library_ms` is null.
+per SM per clock at the SM's maximum clock, counting the multiplies this
+run's data needs (a flagged leaf or an add to infinity needs none). No
+single PyTorch call computes any of these functions, so `library_ms` is
+null.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table. Without a
@@ -37,6 +47,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -55,7 +66,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "scan_total_add": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
     "rcb_add": ("rcb_add.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
     "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
+    "ec_add": ("ec_add.cu", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
+    "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
+    "ec_block_totals_madd": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:271"),
+    "ec_block_totals_add": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:290"),
 }
+# the run whose launches each kernel's row reports
+SETUP_KERNELS = {"rcb_madd"}  # the RCB setup
+JAC_SETUP_KERNELS = {"ec_madd"}  # the Jacobian engine's setup
+JAC_PROVE_KERNELS = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # CUDA Programming Guide, compute capability 9.0
@@ -79,7 +98,11 @@ def smi(query: str = "name,power.limit") -> str:
 def fq_muls(formula: str, ext: int) -> int:
     """Fq multiplies of one Alg. 7 add (12) or Alg. 8 mixed add (11); over
     Fq2 the two multiplies by 3b are Fq2 products too (G1's 3b = 9 is an add
-    chain), and an Fq2 product is 3 Fq products."""
+    chain), and an Fq2 product is 3 Fq products. The Jacobian add's general
+    branch ("jadd", `_add_core`) has 16, the mixed add's ("jmadd") 11, with
+    no curve constant."""
+    if formula in ("jadd", "jmadd"):
+        return {"jadd": 16, "jmadd": 11}[formula] * (3 if ext == 2 else 1)
     base = {"add": 12, "madd": 11}[formula]
     return 3 * (base + 2) if ext == 2 else base
 
@@ -126,14 +149,17 @@ def max_abs_err(a, b) -> int:
 
 
 def rand_field(rng, n: int, shape_tail, df):
-    """n random canonical field elements (limbs below p's top limb)."""
-    import numpy as np
+    """n random canonical field elements (limbs below p's top limb), drawn
+    on the card by a generator seeded from `rng`."""
     import torch
 
-    L = df.L
-    arr = rng.integers(0, 1 << 16, size=(n, *shape_tail[:-1], L), dtype=np.int64)
-    arr[..., -1] = rng.integers(0, int(df.p_limbs[-1]), size=arr.shape[:-1])
-    return torch.as_tensor(arr.astype(np.int32), device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    shape = (n, *shape_tail[:-1], df.L)
+    arr = torch.randint(0, 1 << 16, shape, generator=gen, device=DEVICE, dtype=torch.int32)
+    arr[..., -1] = torch.randint(0, int(df.p_limbs[-1]), shape[:-1], generator=gen,
+                                 device=DEVICE, dtype=torch.int32)
+    return arr
 
 
 def timed_once(fn):
@@ -169,7 +195,11 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     launch; K2 scans batch * npad sorted leaves; K3's first level scans the
     batch * npad / 32 block totals; K4's first level and K5 (E = before +
     W[q]) run at batch * nb; K1 multiplies 2^log2 witness rows. The setup:
-    K6 runs once per window at the fixed-base width, 2^log2 for G1 and G2."""
+    K6 runs once per window at the fixed-base width, 2^log2 for G1 and G2.
+    The Jacobian engine (8-bit windows, `jb` of them per batch): K9b sums
+    jb * npad sorted leaves, K9c their jb * npad / 32 block totals, K8's
+    widest launches are the within-block prefixes of jb * nb queries of 32
+    rows each, and K9a runs per window on chunks of min(npad, _FB_CHUNK)."""
     from ckb_zkp_tpu_torch.ops import msm
 
     npad = 1 << log2
@@ -177,9 +207,14 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     nwin = scalar_bits // c
     batch = max(1, min(nwin, msm._WINDOW_BATCH_POINTS // npad))
     nb = 1 << c
+    jb = max(1, min(scalar_bits // msm._FIXED_BASE_BITS, msm._WINDOW_BATCH_POINTS // npad))
+    jnb = 1 << msm._FIXED_BASE_BITS
     return {"mont_mul": npad, "scan_prefix_madd": batch * npad,
             "scan_prefix_add": batch * npad // msm._RCB_B,
-            "scan_total_add": batch * nb, "rcb_add": batch * nb, "rcb_madd": npad}
+            "scan_total_add": batch * nb, "rcb_add": batch * nb, "rcb_madd": npad,
+            "ec_add": jb * jnb * msm._SCAN_B, "ec_madd": min(npad, msm._FB_CHUNK),
+            "ec_block_totals_madd": jb * npad,
+            "ec_block_totals_add": jb * npad // msm._SCAN_B}
 
 
 class Recorder:
@@ -382,8 +417,10 @@ def phase_kernels(results: dict, log2: int) -> None:
                    (3 * N * eb + w_out + 3 * (N // B) * eb,
                     N * fq_muls("add", ext) * IMAD_PER_FQ_MUL))
     torch.cuda.empty_cache()
+    jacobian_kernels(record, rng, curve, sizes)
+    torch.cuda.empty_cache()
 
-    # the port's MSM against the host-int MSM on a small input
+    # the port's MSM on both engines against the host-int MSM, small input
     prng = random.Random(SEED)
     for group, n in (("g1", 700), ("g2", 300)):
         dg = device_group(curve, group, DEVICE)
@@ -394,10 +431,151 @@ def phase_kernels(results: dict, log2: int) -> None:
         pts[3] = host.infinity
         sc = [prng.randrange(curve.fr.modulus) for _ in range(n)]
         sc[5] = 0
-        got = dg.decode_point(dg.msm(dg.encode_points(pts), dg.encode_scalars(sc)))
-        if got != host.msm(pts, sc):
-            raise AssertionError(f"port MSM != host MSM ({group}, n={n})")
-        log(f"msm {group} n={n}: equal to the host-int MSM")
+        want = host.msm(pts, sc)
+        for engine in ("rcb", "jacobian"):
+            with jacobian_engine(curve, engine == "jacobian"):
+                got = dg.decode_point(dg.msm(dg.encode_points(pts), dg.encode_scalars(sc)))
+            if got != want:
+                raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
+        log(f"msm {group} n={n}: both engines equal to the host-int MSM")
+
+
+@contextlib.contextmanager
+def jacobian_engine(curve, on: bool = True, log2: int = 20):
+    """The cached card groups on the Jacobian MSM engine for the block
+    (`_use_rcb = False`), restored after. Below 2^20 the engine's tiling
+    thresholds scale down by 2^(20 - log2), so that a 2^log2 slice runs a
+    K9b and a K9c level as the 2^20 one does."""
+    from ckb_zkp_tpu_torch.ops import msm
+
+    groups = [msm.device_group(curve, g, DEVICE) for g in ("g1", "g2")]
+    saved = (msm._LEAF_GROUPS, msm._JAC_TOP)
+    shift = max(0, 20 - log2)
+    try:
+        if on:
+            for g in groups:
+                g._use_rcb = False
+            msm._LEAF_GROUPS = max(1, saved[0] >> shift)
+            msm._JAC_TOP = max(1, saved[1] >> shift)
+        yield
+    finally:
+        for g in groups:
+            g._use_rcb = True
+        msm._LEAF_GROUPS, msm._JAC_TOP = saved
+
+
+def jacobian_kernels(record, rng, curve, sizes) -> None:
+    """K8, K9a, K9b and K9c against their plain versions: at 2^14 with the
+    edge cases (P = Q, P = -Q, identity on each side, flagged leaves, with
+    general-Z accumulators) also against the host group; the scans at
+    N = 2^15 (B = 32, repeated leaves for the doubling branch) and a tail
+    B = 5; then at the shapes of the Jacobian setup and prove."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_ec, ec
+    from ckb_zkp_tpu_torch.ops.msm import _SCAN_B, device_group
+
+    n = 1 << 14
+    inv2 = (curve.fr.modulus + 1) // 2
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        cf, cs, host = dg.cf, dg.cf.coord_shape, dg.host_group
+        gen = curve.g1_gen if group == "g1" else curve.g2_gen
+        r0, r1, r2, r3 = (host.mul(gen, int(x)) for x in rng.integers(2, 1 << 60, 4))
+        inf = host.infinity
+        left = [r0, r1, inf, r3, inf, r1, r2]
+        right = [r0, host.neg(r1), r2, inf, inf, r2, host.neg(r2)]
+        k_edge = len(left)
+        want = [host.add(x, y) for x, y in zip(left, right)]
+
+        def general_z(pts):  # the same points, doubled from their halves
+            return dg.p_double(dg.encode_points([host.mul(p, inv2) for p in pts]))
+
+        P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        for full, edge in ((P, general_z(left)), (Q, general_z(right))):
+            for c_full, c_edge in zip(full, edge):
+                c_full[:k_edge] = c_edge
+        k = ec.ec_add(cf, P, Q)
+        pl, plain_ms = timed_once(lambda: cuda_ec.ec_add_plain(cf, P, Q))
+        if dg.decode_points_host(tuple(c[:k_edge] for c in k)) != want:
+            raise AssertionError(f"ec_add edge cases wrong ({group})")
+        record("ec_add", max_abs_err(k, pl), cuda_ms(lambda: ec.ec_add(cf, P, Q), 20),
+               plain_ms, f"{group} n=2^14")
+        xq, yq, zq = dg.encode_points(right)
+        leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
+                  torch.as_tensor(rng.random(n) < 0.1, device=DEVICE))
+        leaves[0][:k_edge], leaves[1][:k_edge] = xq, yq
+        leaves[2][:k_edge] = cf.is_zero(zq)
+        k = cuda_ec.ec_madd(cf, P, leaves)
+        pl, plain_ms = timed_once(lambda: cuda_ec.ec_madd_plain(cf, P, leaves))
+        if dg.decode_points_host(tuple(c[:k_edge] for c in k)) != want:
+            raise AssertionError(f"ec_madd edge cases wrong ({group})")
+        record("ec_madd", max_abs_err(k, pl),
+               cuda_ms(lambda: cuda_ec.ec_madd(cf, P, leaves), 20), plain_ms,
+               f"{group} n=2^14, flagged leaves")
+        for N, B in ((1 << 15, _SCAN_B), (5 * 64, 5)):
+            X, Y = rand_field(rng, N, cs, dg.fq), rand_field(rng, N, cs, dg.fq)
+            flags = torch.as_tensor(rng.random(N) < 0.1, device=DEVICE)
+            X[1], Y[1], flags[:2] = X[0], Y[0], False  # leaf 0 twice: a doubling
+            pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
+            for c in pts:
+                c[1] = c[0]
+            what = f"{group} N={N} B={B}"
+            for name, args in (("ec_block_totals_madd", ((X, Y, flags), B)),
+                               ("ec_block_totals_add", (pts, B))):
+                kern = getattr(cuda_ec, name[3:])
+                plain = getattr(cuda_ec, name[3:] + "_plain")
+                pl, plain_ms = timed_once(lambda: plain(cf, *args))
+                record(name, max_abs_err(kern(cf, *args), pl),
+                       cuda_ms(lambda: kern(cf, *args), 5), plain_ms, what)
+
+    # the shapes of the 2^log2 Jacobian setup and prove; plain timed once
+    B = _SCAN_B
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        cf, cs, ext = dg.cf, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        n = sizes["ec_add"]
+        P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        pl, plain_ms = timed_once(lambda: chunked_plain(cuda_ec.ec_add_plain, cf, P, Q))
+        record("ec_add", max_abs_err(ec.ec_add(cf, P, Q), pl),
+               cuda_ms(lambda: ec.ec_add(cf, P, Q), 10), plain_ms,
+               f"{group} n={n}; main path (prove)",
+               (9 * n * eb, n * fq_muls("jadd", ext) * IMAD_PER_FQ_MUL))
+        n = sizes["ec_madd"]
+        P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+        leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
+                  torch.as_tensor(rng.random(n) < 1 / 256, device=DEVICE))
+        live = n - int(leaves[2].sum())
+        pl, plain_ms = timed_once(
+            lambda: chunked_plain(cuda_ec.ec_madd_plain, cf, P, leaves))
+        record("ec_madd", max_abs_err(cuda_ec.ec_madd(cf, P, leaves), pl),
+               cuda_ms(lambda: cuda_ec.ec_madd(cf, P, leaves), 5), plain_ms,
+               f"{group} n={n}, 1/256 flagged; main path (setup)",
+               (8 * n * eb + n, live * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL))
+        del P, Q, leaves, pl
+        N = sizes["ec_block_totals_madd"]
+        lv = (rand_field(rng, N, cs, dg.fq), rand_field(rng, N, cs, dg.fq),
+              torch.as_tensor(rng.random(N) < 0.01, device=DEVICE))
+        live = (~lv[2]).reshape(N // B, B)
+        adds = int(live.sum()) - int(live.any(1).sum())  # the first live leaf copies
+        pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_madd_plain(cf, lv, B))
+        record("ec_block_totals_madd", max_abs_err(cuda_ec.block_totals_madd(cf, lv, B), pl),
+               cuda_ms(lambda: cuda_ec.block_totals_madd(cf, lv, B), 3), plain_ms,
+               f"{group} N={N} B={B}; main path (prove)",
+               (N * 2 * eb + N + 3 * (N // B) * eb,
+                adds * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL))
+        del lv, pl
+        N = sizes["ec_block_totals_add"]
+        pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
+        pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_add_plain(cf, pts, B))
+        record("ec_block_totals_add", max_abs_err(cuda_ec.block_totals_add(cf, pts, B), pl),
+               cuda_ms(lambda: cuda_ec.block_totals_add(cf, pts, B), 3), plain_ms,
+               f"{group} N={N} B={B}; main path (prove)",
+               (3 * N * eb + 3 * (N // B) * eb,
+                (N - N // B) * fq_muls("jadd", ext) * IMAD_PER_FQ_MUL))
 
 
 def phase_setup_check(log2: int) -> None:
@@ -440,10 +618,11 @@ def phase_setup_check(log2: int) -> None:
         raise AssertionError("device-branch and host-mode verifying keys differ")
 
 
-def phase_slice(card: str, log2: int):
+def phase_slice(card: str, log2: int) -> dict:
     """Device setup, warm-up prove, timed prove and verdicts of the
-    (2^log2 - 2)-constraint square chain. Returns the kernel launches of
-    the setup and of the timed prove."""
+    (2^log2 - 2)-constraint square chain. Returns the run (curve, shape,
+    toxic waste, parameters, r, s, proof) with the kernel launches of the
+    setup and of the timed prove."""
     import torch
 
     from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
@@ -494,9 +673,20 @@ def phase_slice(card: str, log2: int):
         raise AssertionError("a prove left device memory behind")
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the timed prove: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0 and k != "rcb_madd"]
+    rcb_prove = set(KERNELS) - SETUP_KERNELS - JAC_SETUP_KERNELS - JAC_PROVE_KERNELS
+    missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
+    check_verdicts(curve, params, shape, proof)
+    return {"curve": curve, "shape": shape, "toxic": toxic, "params": params,
+            "r": r, "s": s, "proof": proof, "setup_launches": setup_launches,
+            "prove_launches": launches}
+
+
+def check_verdicts(curve, params, shape, proof) -> None:
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    fr = curve.fr.modulus
     pvk = groth16.prepare_verifying_key(curve, params.vk)
     publics = shape.input_assignment[1:]
     ok = groth16.verify_proof(curve, pvk, proof, publics)
@@ -504,7 +694,63 @@ def phase_slice(card: str, log2: int):
     log(f"verify_proof: {ok}; tampered public input: {bad}")
     if ok is not True or bad is not False:
         raise AssertionError("the proof does not verify, or a tampered one does")
-    return setup_launches, launches
+
+
+QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+
+
+def phase_jacobian(card: str, run: dict, log2: int) -> dict:
+    """The slice's setup and prove on the Jacobian MSM engine, held point
+    for point against the RCB run `run` (same toxic waste, same r, s)."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    curve, shape, rcb = run["curve"], run["shape"], run["params"]
+    with jacobian_engine(curve, True, log2):
+        cuda_build.reset_counts()
+        setup_t: dict = {}
+        t0 = time.perf_counter()
+        params = groth16.generate_parameters_from_shape(
+            shape, curve, *run["toxic"], device=DEVICE, timings=setup_t)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_launches = dict(cuda_build.COUNTS)
+        log(f"jacobian setup: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
+        log(f"kernel launches in the jacobian setup: {json.dumps(setup_launches)}")
+        if setup_launches["ec_madd"] <= 0:
+            raise AssertionError("the Jacobian setup did not launch K9a (ec_madd)")
+        for name in QUERIES:
+            d, h = getattr(params, name), getattr(rcb, name)
+            n = min(d[0].shape[0], h[0].shape[0])
+            if not all(torch.equal(dc[:n], hc[:n]) for dc, hc in zip(d, h)):
+                raise AssertionError(f"{name}: Jacobian setup != RCB setup")
+            if bool(d[2][n:].any()) or bool(h[2][n:].any()):
+                raise AssertionError(f"{name}: rows beyond the shared ones not at infinity")
+            log(f"jacobian setup: {name} equal to the RCB setup's on {n} rows, limb "
+                f"for limb ({d[0].shape[0]} and {h[0].shape[0]} rows)")
+        if params.vk != rcb.vk:
+            raise AssertionError("Jacobian and RCB verifying keys differ")
+        cuda_build.reset_counts()
+        stages: dict = {}
+        t0 = time.perf_counter()
+        proof = groth16.create_proof_from_shape(params, shape, run["r"], run["s"],
+                                                timings=stages)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        launches = dict(cuda_build.COUNTS)
+    log(f"jacobian prove: {prove_s:.3f} s {json.dumps(stages)} [{card}]")
+    log(f"kernel launches in the jacobian prove: {json.dumps(launches)}")
+    missing = [k for k in sorted(JAC_PROVE_KERNELS) if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the Jacobian prove: {missing}")
+    want = run["proof"]
+    if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
+        raise AssertionError("the Jacobian engine's proof != the RCB engine's")
+    log("jacobian prove: the proof equals the RCB engine's for the same (r, s)")
+    check_verdicts(curve, params, shape, proof)
+    return {"setup_launches": setup_launches, "prove_launches": launches}
 
 
 def main() -> int:
@@ -539,13 +785,24 @@ def main() -> int:
             log(f"nvcc: {line.strip()}")
 
     results: dict = {}
+    t0 = time.perf_counter()
     phase_kernels(results, args.log2)
+    t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
-    setup_launches, prove_launches = phase_slice(card, args.log2)
+    t2 = time.perf_counter()
+    run = phase_slice(card, args.log2)
+    t3 = time.perf_counter()
+    jac = phase_jacobian(card, run, args.log2)
+    t4 = time.perf_counter()
+    log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
+        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
-        launches = (setup_launches if name == "rcb_madd" else prove_launches)[name]
+        launches = (run["setup_launches"] if name in SETUP_KERNELS
+                    else jac["setup_launches"] if name in JAC_SETUP_KERNELS
+                    else jac["prove_launches"] if name in JAC_PROVE_KERNELS
+                    else run["prove_launches"])[name]
         if launches <= 0:
             raise AssertionError(f"{name} was not launched on its path")
         table.append({

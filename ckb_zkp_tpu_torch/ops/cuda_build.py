@@ -26,8 +26,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_scan.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh")
+SOURCES = ("rcb_scan.cu", "ec_scan.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu",
+           "rcb_madd.cu", "mont_mul.cu")
+HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -37,6 +38,10 @@ COUNTS = {
     "scan_total_add": 0,  # K4
     "rcb_add": 0,  # K5
     "rcb_madd": 0,  # K6
+    "ec_add": 0,  # K8
+    "ec_madd": 0,  # K9a
+    "ec_block_totals_madd": 0,  # K9b
+    "ec_block_totals_add": 0,  # K9c
 }
 
 _lib = None
@@ -133,6 +138,12 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_madd.restype = i
         L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 9 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
+        L.zkp_ec_add.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
+        L.zkp_ec_add.restype = i
+        L.zkp_ec_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
+        L.zkp_ec_madd.restype = i
+        L.zkp_ec_scan.argtypes = [vp, i, i] + [vp] * 6 + [ll, i, vp]
+        L.zkp_ec_scan.restype = i
         _lib = L
     return _lib
 

@@ -42,27 +42,34 @@ def _launch_args(ts):
 
 
 # ------------------------------------------------------------------ K5
-def rcb_add(rg, p, q):
-    """Elementwise complete projective add: K5 on CUDA, plain on CPU."""
-    if p[0].device.type == "cpu":
-        return rcb_add_plain(rg, p, q)
-    cs = rg.cf.coord_shape
+def launch_pairwise(entry: str, count: str, kconsts, cf, p, q):
+    """Launch an elementwise kernel of two points (K5, K8) on broadcast
+    (X, Y, Z) operands; the C entry takes (consts, ext, out x3, p x3, q x3,
+    n, stream)."""
+    cs = cf.coord_shape
     shape = torch.broadcast_shapes(*(c.shape for c in (*p, *q)))
     coords = [c.expand(shape).contiguous() for c in (*p, *q)]
     for i, c in enumerate(coords):
-        cuda_build.check_tensor(c, f"rcb_add operand {i}")
+        cuda_build.check_tensor(c, f"{count} operand {i}")
     out = [torch.empty(shape, dtype=torch.int32, device=coords[0].device)
            for _ in range(3)]
     n = out[0].numel() // math.prod(cs)
     if n == 0:
         return tuple(out)
-    rc = cuda_build.lib().zkp_rcb_add(
-        rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out),
-        *_launch_args(coords), n, cuda_build.stream_ptr(out[0]),
+    rc = getattr(cuda_build.lib(), entry)(
+        kconsts.ctypes.data, cf.ext, *_launch_args(out), *_launch_args(coords),
+        n, cuda_build.stream_ptr(out[0]),
     )
-    cuda_build.COUNTS["rcb_add"] += 1
-    cuda_build.check(rc, "rcb_add")
+    cuda_build.COUNTS[count] += 1
+    cuda_build.check(rc, count)
     return tuple(out)
+
+
+def rcb_add(rg, p, q):
+    """Elementwise complete projective add: K5 on CUDA, plain on CPU."""
+    if p[0].device.type == "cpu":
+        return rcb_add_plain(rg, p, q)
+    return launch_pairwise("zkp_rcb_add", "rcb_add", rg.kconsts, rg.cf, p, q)
 
 
 def rcb_add_plain(rg, p, q):
@@ -71,14 +78,14 @@ def rcb_add_plain(rg, p, q):
 
 
 # ------------------------------------------------------------------ K6
-def rcb_madd(rg, p, q_affine):
-    """Elementwise p + (x2, y2, inf): K6 on CUDA, plain on CPU. Operands
-    broadcast against each other as in `rcb_madd_pallas`
-    (`ops/pallas_rcb.py:543-563`); inf has the batch shape only."""
+def launch_mixed(entry: str, count: str, kconsts, cf, p, q_affine):
+    """Launch an elementwise kernel of a point and an affine point with an
+    infinity flag (K6, K9a). Operands broadcast against each other as in
+    the reference's `rcb_madd_pallas` (`ops/pallas_rcb.py:543-563`); the
+    flag has the batch shape only. The C entry takes (consts, ext, out x3,
+    p x3, x2, y2, flags, n, stream)."""
     x2, y2, inf2 = q_affine
-    if p[0].device.type == "cpu":
-        return rcb_madd_plain(rg, p, q_affine)
-    cs = rg.cf.coord_shape
+    cs = cf.coord_shape
     nd = len(cs)
     batch = torch.broadcast_shapes(
         *(c.shape[: c.dim() - nd] for c in (*p, x2, y2)), inf2.shape)
@@ -86,21 +93,28 @@ def rcb_madd(rg, p, q_affine):
     coords = [c.expand(shape).contiguous() for c in (*p, x2, y2)]
     flags = torch.as_tensor(inf2, device=coords[0].device).expand(batch).contiguous()
     for i, c in enumerate(coords):
-        cuda_build.check_tensor(c, f"rcb_madd operand {i}")
-    cuda_build.check_tensor(flags, "rcb_madd flags", batch, torch.bool)
+        cuda_build.check_tensor(c, f"{count} operand {i}")
+    cuda_build.check_tensor(flags, f"{count} flags", batch, torch.bool)
     out = [torch.empty(shape, dtype=torch.int32, device=coords[0].device)
            for _ in range(3)]
     n = math.prod(batch)
     if n == 0:
         return tuple(out)
-    rc = cuda_build.lib().zkp_rcb_madd(
-        rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out),
+    rc = getattr(cuda_build.lib(), entry)(
+        kconsts.ctypes.data, cf.ext, *_launch_args(out),
         *_launch_args(coords), flags.data_ptr(), n,
         cuda_build.stream_ptr(out[0]),
     )
-    cuda_build.COUNTS["rcb_madd"] += 1
-    cuda_build.check(rc, "rcb_madd")
+    cuda_build.COUNTS[count] += 1
+    cuda_build.check(rc, count)
     return tuple(out)
+
+
+def rcb_madd(rg, p, q_affine):
+    """Elementwise p + (x2, y2, inf): K6 on CUDA, plain on CPU."""
+    if p[0].device.type == "cpu":
+        return rcb_madd_plain(rg, p, q_affine)
+    return launch_mixed("zkp_rcb_madd", "rcb_madd", rg.kconsts, rg.cf, p, q_affine)
 
 
 def rcb_madd_plain(rg, p, q_affine):

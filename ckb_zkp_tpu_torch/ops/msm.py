@@ -16,6 +16,19 @@ lax.scan, the port runs a batch of windows in every launch: the scans then
 cover batch * N / 32 columns, which widens the small per-window grid of
 the scan kernel, and the launch count per MSM drops by the batch size.
 Batches are capped at 2^21 points to bound memory.
+
+The Jacobian engine is the reference's other branch of `DeviceCurveGroup`
+(`_use_rcb` False, `ops/msm.py:363`): `_msm_impl` (`:830-848`) runs the
+windows one at a time through `_window_sum` (`:594-636`), whose bucket
+boundaries come from `_prefix_boundary_leaf` and `_prefix_boundary_jac`
+(`:670-733`) over sorted affine leaves: K9b block totals, a K9c level,
+a Hillis-Steele top and K8 combines; the fixed-base MSM accumulates with
+K9a (`_fixed_base_impl`, `:883-899`). The port always takes the
+reference's accelerator branch of that engine (affine leaves, block
+totals, the K9a fixed-base), so it keeps no `_affine_leaves` flag. Both
+engines give the same affine points; every pairing curve of the repo has
+a = 0, so the RCB engine is the default and the Jacobian one runs where a
+caller sets `_use_rcb = False`.
 """
 
 from __future__ import annotations
@@ -23,12 +36,14 @@ from __future__ import annotations
 import torch
 
 from ..host.curves import AffinePoint
+from .cuda_ec import block_totals_add, block_totals_madd, ec_madd
 from .cuda_rcb import pack_limbs_flag, scan_prefix_add, scan_prefix_madd, scan_total_add
-from .ec import DeviceFq2, point_select
+from .ec import (DeviceFq2, ec_add, ec_double, ec_neg, point_infinity, point_select,
+                 to_affine)
 from .field import device_field
 from .limbs import BASE_BITS, ints_to_limbs, limbs_to_ints
 from .rcb import RcbGroup
-from .scan_utils import hs_scan
+from .scan_utils import hs_scan, prefix_at_indices, within_block_prefix
 from .sparse import COL_ALIGN
 
 _RCB_B = 32  # scan block: elements per sequential accumulation
@@ -36,6 +51,13 @@ _SMALL_SCAN_MAX = 32  # _reduce_pts finishes with one B = n launch below this
 _TOP_MAX = 128  # _boundary_before finishes with a Hillis-Steele scan below this
 _WINDOW_BATCH_POINTS = 1 << 21
 _FIXED_BASE_BITS = 8  # fixed-base windows (the reference's device_group default)
+
+# Jacobian engine sizing: the reference's TPU tiling rules, kept as module
+# constants that tests patch small to reach every level at few points
+_SCAN_B = 32  # K9b/K9c block (reference `_SCAN_B`)
+_LEAF_GROUPS = 8 * 128  # K9b runs when n % (_SCAN_B * _LEAF_GROUPS) == 0 (SCAN_SUBS * 128)
+_JAC_TOP = 2 * 32 * 128  # _prefix_boundary_jac scans Hillis-Steele at n <= this
+_FB_CHUNK = 1 << 18  # fixed-base chunk (reference `_fb_chunk` on its accelerator)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -149,6 +171,39 @@ class DeviceCurveGroup:
         self.nb = 1 << self.c
         self.nwindows = self.fr.L * BASE_BITS // self.c
         self.rg = RcbGroup(self.cf, self.host_group.b)
+        # RCB projective engine: a = 0 short-Weierstrass groups (reference
+        # `ops/msm.py:363`); else, or where a caller clears it, Jacobian
+        self._use_rcb = self.host_group.a in (0, (0, 0))
+
+    def _check_jacobian(self):
+        """The Jacobian formulas are a = 0 formulas; the reference sends an
+        a != 0 group to them and doubles it wrongly (no a Z^4 term,
+        `ops/ec.py:100-117`). The port refuses such a group."""
+        if self.host_group.a not in (0, (0, 0)):
+            raise ValueError(
+                f"{self.curve.name} {self.group}: the Jacobian engine's "
+                f"formulas need a = 0, the group has a = {self.host_group.a}")
+
+    # ------------- point ops of the Jacobian engine -------------
+    def p_add(self, a, b):
+        return ec_add(self.cf, a, b)
+
+    def p_double(self, a):
+        return ec_double(self.cf, a)
+
+    def p_neg(self, a):
+        return ec_neg(self.cf, a)
+
+    def p_identity(self, batch_shape=()):
+        return point_infinity(self.cf, batch_shape)
+
+    def _normalize(self, P):
+        """Jacobian -> affine-encoded Jacobian (Z in {0, one}), one batch
+        inversion (reference `ops/msm.py:396-409`)."""
+        x, y, inf = to_affine(self.cf, P)
+        z = point_select(self.cf, inf, (self.cf.zeros(inf.shape),),
+                         (self.cf.ones(inf.shape),))[0]
+        return (x, y, z)
 
     # ------------- host <-> device -------------
     def _coord_encode(self, coords) -> torch.Tensor:
@@ -211,7 +266,16 @@ class DeviceCurveGroup:
             scalars = torch.cat([scalars, scalars.new_zeros((n_pts - n, scalars.shape[1]))])
         elif n_pts < n:
             raise ValueError(f"msm: {n_pts} points for {n} scalars")
-        return self._msm_rcb(P, scalars)
+        if self._use_rcb:
+            return self._msm_rcb(P, scalars)
+        self._check_jacobian()
+        # the Jacobian engine pads to a power of two, at least 8, with
+        # identity points and zero scalars (reference `ops/msm.py:576-586`)
+        np2 = max(8, 1 << (n_pts - 1).bit_length())
+        if np2 != n_pts:
+            P = tuple(torch.cat([c, i]) for c, i in zip(P, self.p_identity((np2 - n_pts,))))
+            scalars = torch.cat([scalars, scalars.new_zeros((np2 - n_pts, scalars.shape[1]))])
+        return self._msm_impl(P, scalars)
 
     @staticmethod
     def _msm_window_bits(n: int) -> int:
@@ -275,6 +339,119 @@ class DeviceCurveGroup:
         t = _scale_pow2_minus1(rg, e_last, c)
         return rg.add(t, rg.neg(sum_e))
 
+    # ------------- Jacobian Pippenger -------------
+    def _digits(self, scalars, w: int):
+        """c-bit digit w of (N, L) canonical 16-bit scalar limbs."""
+        bitpos = w * self.c
+        limb = scalars[:, bitpos // BASE_BITS].to(torch.int64)
+        return (limb >> (bitpos % BASE_BITS)) & (self.nb - 1)
+
+    def _msm_impl(self, P, scalars):
+        """Jacobian sum_i s_i P_i over c-bit windows (reference
+        `ops/msm.py:830-848`), then the fold sum_w 2^(cw) S_w by doublings.
+        P affine-encoded: its leaves are (X, Y, Z == 0). The reference runs
+        the windows one at a time; the port runs them in batches of up to
+        _WINDOW_BATCH_POINTS leaves, as `_msm_rcb` does, so each K9b, K9c
+        and K8 launch covers a batch of windows."""
+        X, Y, Z = P
+        leaves = (X, Y, self.cf.is_zero(Z))
+        n, W = X.shape[0], self.nwindows
+        digits = torch.stack([self._digits(scalars, w) for w in range(W)])
+        batch = max(1, min(W, _WINDOW_BATCH_POINTS // n))
+        parts = [self._window_sums(leaves, digits[w0 : w0 + batch])
+                 for w0 in range(0, W, batch)]
+        S = tuple(torch.cat(cs) for cs in zip(*parts))  # (W,)
+        acc = self.p_identity()
+        for i in range(W):
+            for _ in range(self.c):
+                acc = self.p_add(acc, acc)  # 2 acc, see _window_sums
+            acc = self.p_add(acc, tuple(s[W - 1 - i] for s in S))
+        return acc
+
+    def _window_sums(self, leaves, digits):
+        """sum_b b * B_b for each row of (k, n) digits (reference
+        `_window_sum`, `ops/msm.py:594-636`): sort the leaves by digit, take
+        the inclusive prefixes E_b at the bucket boundaries, and telescope
+        (nb - 1) E_last - sum_{b < nb-1} E_b. The reference sums the E_b as
+        the last element of a Hillis-Steele scan; the port adds them in a
+        halving tree, the same point with nb - 2 adds. The reference doubles
+        with `ec_double` (`p_double`); here and in the fold the port doubles
+        with K8's t + t, whose doubling branch is `ec_double`'s formula
+        (infinity stays infinity, in another representative): one launch
+        on the card, where the torch composition is some 200 launches of
+        tiny ops (with it, a 2^20-point G1 MSM made 97511 launches and took
+        1.29 s on an H100)."""
+        nb = self.nb
+        order = torch.sort(digits, dim=1).indices
+        ar = torch.arange(nb, device=digits.device).expand(digits.shape[0], nb)
+        cnt = torch.searchsorted(torch.gather(digits, 1, order), ar.contiguous(), right=True)
+        E = self._prefix_boundary_leaf(tuple(c[order] for c in leaves), cnt - 1)
+        e_last = tuple(e[:, nb - 1] for e in E)
+        sum_e = self._sum_dim1(tuple(e[:, : nb - 1] for e in E))
+        t = e_last
+        for _ in range(self.c):
+            t = self.p_add(t, t)
+        acc = self.p_add(t, self.p_neg(e_last))
+        return self.p_add(acc, self.p_neg(sum_e))
+
+    def _sum_dim1(self, pts):
+        """(k, n) points -> (k,) sums, by a halving tree of K8 adds."""
+        while pts[0].shape[1] > 1:
+            if pts[0].shape[1] % 2:
+                pad = self.p_identity((pts[0].shape[0], 1))
+                pts = tuple(torch.cat([c, i], dim=1) for c, i in zip(pts, pad))
+            pts = self.p_add(tuple(c[:, 0::2] for c in pts), tuple(c[:, 1::2] for c in pts))
+        return tuple(c[:, 0] for c in pts)
+
+    def _promote_leaves(self, lv):
+        """Affine leaves (x, y, inf) -> Jacobian (x, y, 0 or one)."""
+        x, y, m = lv
+        z = point_select(self.cf, m, (self.cf.zeros(m.shape),), (self.cf.ones(m.shape),))[0]
+        return (x, y, z)
+
+    def _prefix_boundary_leaf(self, leaves, q):
+        """Inclusive prefix at each q (q = -1: infinity) over (k, n) sorted
+        affine leaves, q (k, Q) (reference `ops/msm.py:670-704`): K9b block
+        totals, their prefix before each query's block, and the query's
+        within-block rows. n must be a multiple of _SCAN_B * _LEAF_GROUPS
+        (2^15 leaves); else `prefix_at_indices` with K9a leaf combines."""
+        k, n = leaves[0].shape[:2]
+        B = _SCAN_B
+        if n % (B * _LEAF_GROUPS):
+            lid = (self.cf.zeros(), self.cf.zeros(),
+                   torch.ones((), dtype=torch.bool, device=leaves[2].device))
+            return prefix_at_indices(
+                self.p_add, leaves, self.p_identity(), q,
+                leaf_combine=lambda acc, lv: ec_madd(self.cf, acc, lv),
+                leaf_identity=lid, promote=self._promote_leaves)
+        totals = block_totals_madd(self.cf, _flat(leaves), B)
+        return self._combine_blocks(_unflat(totals, k), leaves, q, self._promote_leaves)
+
+    def _prefix_boundary_jac(self, pts, q):
+        """The Jacobian-level recursion over (k, n) points (reference
+        `ops/msm.py:706-733`): a Hillis-Steele scan at n <= _JAC_TOP, else
+        K9c block totals over rows padded with infinity to a
+        _SCAN_B * _LEAF_GROUPS multiple."""
+        k, n = pts[0].shape[:2]
+        if n <= _JAC_TOP:
+            return prefix_at_indices(self.p_add, pts, self.p_identity(), q, hs_base=n)
+        blk = _SCAN_B * _LEAF_GROUPS
+        pts = _pad_dim1(pts, _cdiv(n, blk) * blk, self.p_identity())
+        totals = block_totals_add(self.cf, _flat(pts), _SCAN_B)
+        return self._combine_blocks(_unflat(totals, k), pts, q)
+
+    def _combine_blocks(self, totals, elems, q, promote=None):
+        """prefix(totals, q // B - 1) + elems' within-block prefix up to q,
+        infinity where q < 0: the common tail of both boundary levels."""
+        B = _SCAN_B
+        qc = q.clamp(min=0)
+        gq = torch.div(qc, B, rounding_mode="floor")
+        before = self._prefix_boundary_jac(totals, gq - 1)
+        part2 = within_block_prefix(self.p_add, elems, self.p_identity(), gq,
+                                    qc - gq * B, B, promote)
+        out = self.p_add(before, part2)
+        return point_select(self.cf, q >= 0, out, self.p_identity(q.shape))
+
     # ------------- fixed-base (setup path) -------------
     def fixed_base_table(self, base_affine):
         """Window table T[w, d] = d * 2^(cw) * base, affine-encoded, built on
@@ -285,33 +462,53 @@ class DeviceCurveGroup:
 
     def fixed_base_msm(self, table, scalars, pad_output: bool = False):
         """[s_i * base] as affine-encoded points. Padding follows the
-        reference's accelerator rule (`ops/msm.py:1002-1011`): G1 pads to a
-        multiple of COL_ALIGN from COL_ALIGN up, G2 (and small G1) to a power
-        of two; padding rows (zero scalars) are infinity.
+        reference's accelerator rules (`ops/msm.py:1002-1011`): the RCB
+        engine pads G1 to a multiple of COL_ALIGN from COL_ALIGN up, G2
+        (and small G1) to a power of two; the Jacobian engine pads every
+        query to a power of two, at least 8. Padding rows (zero scalars)
+        are infinity.
 
-        Each window accumulates with K6 (`rg.madd`) on the gathered table
-        rows (X[w][d], Y[w][d], d == 0), as `_fixed_base_rcb` does through
-        `_wide_madd` (`ops/msm.py:917-925, 953`): the d = 0 row is
+        RCB: each window accumulates with K6 (`rg.madd`) on the gathered
+        table rows (X[w][d], Y[w][d], d == 0), as `_fixed_base_rcb` does
+        through `_wide_madd` (`ops/msm.py:917-925, 953`): the d = 0 row is
         infinity and leaves the accumulator as it is. The reference selects
         rows with a one-hot int8 matmul (XLA work, not a kernel); the port
-        gathers. The projective output is normalized once."""
-        rg = self.rg
+        gathers. The projective output is normalized once. Jacobian: chunks
+        of _FB_CHUNK scalars through `_fixed_base_impl` (reference
+        `:1035-1036`, `_fixed_base_chunked` `:969-980`)."""
         n = scalars.shape[0]
-        if self.group == "g1" and n >= COL_ALIGN:
+        if not self._use_rcb:
+            self._check_jacobian()
+        if self._use_rcb and self.group == "g1" and n >= COL_ALIGN:
             np2 = _cdiv(n, COL_ALIGN) * COL_ALIGN
         else:
             np2 = max(8, 1 << (n - 1).bit_length())
         sc = scalars.to(torch.int64)
         if np2 != n:
             sc = torch.cat([sc, sc.new_zeros((np2 - n, sc.shape[1]))])
-        X, Y, _ = table
-        acc = rg.identity((np2,))
-        for w in range(self.nwindows):
-            bitpos = w * self.c
-            d = (sc[:, bitpos // BASE_BITS] >> (bitpos % BASE_BITS)) & (self.nb - 1)
-            acc = rg.madd(acc, (X[w][d], Y[w][d], d == 0))
-        out = self._normalize_proj(acc)
+        if self._use_rcb:
+            X, Y, _ = table
+            acc = self.rg.identity((np2,))
+            for w in range(self.nwindows):
+                d = self._digits(sc, w)
+                acc = self.rg.madd(acc, (X[w][d], Y[w][d], d == 0))
+            out = self._normalize_proj(acc)
+        else:
+            parts = [self._fixed_base_impl(table, sc[i : i + _FB_CHUNK])
+                     for i in range(0, np2, _FB_CHUNK)]
+            out = tuple(torch.cat(cs) for cs in zip(*parts))
         return out if pad_output else tuple(c[:n] for c in out)
+
+    def _fixed_base_impl(self, table, scalars):
+        """Jacobian fixed-base: one K9a mixed add per window on the
+        gathered table rows (the d = 0 row is infinity, flagged by
+        d == 0), then one normalization (reference `ops/msm.py:883-899`)."""
+        X, Y, _ = table
+        acc = self.p_identity((scalars.shape[0],))
+        for w in range(self.nwindows):
+            d = self._digits(scalars, w)
+            acc = ec_madd(self.cf, acc, (X[w][d], Y[w][d], d == 0))
+        return self._normalize(acc)
 
     def _normalize_proj(self, p):
         """Projective -> affine-encoded Jacobian (Z in {0, one}); the Z
@@ -330,8 +527,14 @@ _GROUPS: dict = {}
 
 
 def device_group(curve, group: str, device="cuda") -> DeviceCurveGroup:
-    key = (curve.name, group, str(torch.device(device)))
+    """The cached group of (curve, group, device). "cuda" and the current
+    card's "cuda:N" name one group, so the setup (given "cuda") and the
+    prover (given its keys' device) share it and its `_use_rcb`."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (curve.name, group, str(dev))
     g = _GROUPS.get(key)
     if g is None:
-        g = _GROUPS[key] = DeviceCurveGroup(curve, group, device)
+        g = _GROUPS[key] = DeviceCurveGroup(curve, group, dev)
     return g

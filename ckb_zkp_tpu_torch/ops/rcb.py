@@ -20,28 +20,8 @@ import torch
 
 from .cuda_field import kernel_consts
 from .cuda_rcb import rcb_add, rcb_madd
-from .ec import DeviceFq2, point_select
+from .ec import DeviceFq2, adds, addsubs, muls, point_select
 from .field import DeviceField
-
-
-def _stack_pairs(pairs):
-    shape = torch.broadcast_shapes(*(t.shape for ab in pairs for t in ab))
-    A = torch.stack([a.expand(shape) for a, _ in pairs])
-    B = torch.stack([b.expand(shape) for _, b in pairs])
-    return A, B
-
-
-def _muls(cf, pairs):
-    return cf.mul(*_stack_pairs(pairs)).unbind(0)
-
-
-def _adds(cf, pairs):
-    return cf.add(*_stack_pairs(pairs)).unbind(0)
-
-
-def _addsubs(cf, pairs, neg):
-    """a - b where neg, else a + b, for every pair, in one stacked call."""
-    return cf.addsub(*_stack_pairs(pairs), neg).unbind(0)
 
 
 class RcbGroup:
@@ -91,19 +71,19 @@ class RcbGroup:
         cf = self.cf
         X1, Y1, Z1 = p
         X2, Y2, Z2 = q
-        s = _adds(cf, [(X1, Y1), (X2, Y2), (Y1, Z1), (Y2, Z2), (X1, Z1), (X2, Z2)])
-        t0, t1, t2, t3, t4, X3 = _muls(
+        s = adds(cf, [(X1, Y1), (X2, Y2), (Y1, Z1), (Y2, Z2), (X1, Z1), (X2, Z2)])
+        t0, t1, t2, t3, t4, X3 = muls(
             cf, [(X1, X2), (Y1, Y2), (Z1, Z2), (s[0], s[1]), (s[2], s[3]),
                  (s[4], s[5])]
         )
-        u = _adds(cf, [(t0, t1), (t1, t2), (t0, t2), (t0, t0)])
-        t3, t4, Y3, t0 = _addsubs(  # X1Y2 + X2Y1, Y1Z2 + Y2Z1, X1Z2 + X2Z1, 3 X1X2
+        u = adds(cf, [(t0, t1), (t1, t2), (t0, t2), (t0, t0)])
+        t3, t4, Y3, t0 = addsubs(  # X1Y2 + X2Y1, Y1Z2 + Y2Z1, X1Z2 + X2Z1, 3 X1X2
             cf, [(t3, u[0]), (t4, u[1]), (X3, u[2]), (u[3], t0)],
             (True, True, True, False))
         t2, Y3 = self.mul_b3(torch.stack(torch.broadcast_tensors(t2, Y3))).unbind(0)
-        Z3, t1 = _addsubs(cf, [(t1, t2), (t1, t2)], (False, True))
-        m = _muls(cf, [(t3, t1), (t4, Y3), (t1, Z3), (Y3, t0), (Z3, t4), (t0, t3)])
-        return tuple(_addsubs(
+        Z3, t1 = addsubs(cf, [(t1, t2), (t1, t2)], (False, True))
+        m = muls(cf, [(t3, t1), (t4, Y3), (t1, Z3), (Y3, t0), (Z3, t4), (t0, t3)])
+        return tuple(addsubs(
             cf, [(m[0], m[1]), (m[2], m[3]), (m[4], m[5])], (True, False, False)))
 
     # ---- Algorithm 8: mixed add (Q affine, Z2 = 1), a = 0 ----
@@ -112,17 +92,17 @@ class RcbGroup:
         cf = self.cf
         X1, Y1, Z1 = p
         X2, Y2 = xy2
-        s = _adds(cf, [(X2, Y2), (X1, Y1)])
-        t0, t1, t3, a, b = _muls(
+        s = adds(cf, [(X2, Y2), (X1, Y1)])
+        t0, t1, t3, a, b = muls(
             cf, [(X1, X2), (Y1, Y2), (s[0], s[1]), (X2, Z1), (Y2, Z1)]
         )
-        u = _adds(cf, [(t0, t1), (a, X1), (b, Y1), (t0, t0)])
+        u = adds(cf, [(t0, t1), (a, X1), (b, Y1), (t0, t0)])
         t4, t5 = u[1], u[2]
-        t3, t0 = _addsubs(cf, [(t3, u[0]), (u[3], t0)], (True, False))
+        t3, t0 = addsubs(cf, [(t3, u[0]), (u[3], t0)], (True, False))
         t2, Y3 = self.mul_b3(torch.stack(torch.broadcast_tensors(Z1, t4))).unbind(0)
-        Z3, t1 = _addsubs(cf, [(t1, t2), (t1, t2)], (False, True))
-        m = _muls(cf, [(t3, t1), (t5, Y3), (t1, Z3), (Y3, t0), (Z3, t5), (t0, t3)])
-        return tuple(_addsubs(
+        Z3, t1 = addsubs(cf, [(t1, t2), (t1, t2)], (False, True))
+        m = muls(cf, [(t3, t1), (t5, Y3), (t1, Z3), (Y3, t0), (Z3, t5), (t0, t3)])
+        return tuple(addsubs(
             cf, [(m[0], m[1]), (m[2], m[3]), (m[4], m[5])], (True, False, False)))
 
     def madd(self, p, q_affine):
@@ -141,14 +121,14 @@ class RcbGroup:
     def double(self, p):
         cf = self.cf
         X, Y, Z = p
-        t0, t1, zz, xy = _muls(cf, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
+        t0, t1, zz, xy = muls(cf, [(Y, Y), (Y, Z), (Z, Z), (X, Y)])
         Z3 = cf.add(t0, t0)
         Z3 = cf.add(Z3, Z3)
         Z3 = cf.add(Z3, Z3)  # 8 Y^2
         t2 = self.mul_b3(zz)  # 3b Z^2
-        Y3, t2x2, xy2 = _adds(cf, [(t0, t2), (t2, t2), (xy, xy)])
+        Y3, t2x2, xy2 = adds(cf, [(t0, t2), (t2, t2), (xy, xy)])
         t0 = cf.sub(t0, cf.add(t2x2, t2))  # Y^2 - 9b Z^2
-        X3, Z3, m, X3f = _muls(cf, [(t2, Z3), (t1, Z3), (t0, Y3), (xy2, t0)])
+        X3, Z3, m, X3f = muls(cf, [(t2, Z3), (t1, Z3), (t0, Y3), (xy2, t0)])
         return (X3f, cf.add(X3, m), Z3)
 
     # ---- conversions ----
@@ -163,5 +143,5 @@ class RcbGroup:
         """Projective -> Jacobian with the same affine value: (XZ, YZ^2, Z)."""
         cf = self.cf
         X, Y, Z = p
-        z2, xz = _muls(cf, [(Z, Z), (X, Z)])
+        z2, xz = muls(cf, [(Z, Z), (X, Z)])
         return (xz, cf.mul(Y, z2), Z)

@@ -2,7 +2,9 @@
 port uses.
 
 `hs_scan` ports `scan_utils.hs_scan` (`:155`), with the scanned axis as an
-argument so the MSM can scan a batch of windows at once. `SegmentLayout`
+argument so the MSM can scan a batch of windows at once.
+`prefix_at_indices` ports `:182-255` for the Jacobian MSM engine, with
+its within-block step shared as `within_block_prefix`. `SegmentLayout`
 and `segment_sum` take the place of `segment_sum_sorted` (`:67`) for the
 sparse products: torch has no modular segment sum, so the segments are
 grouped by length class (lengths in (2^(c-1), 2^c]), each class is laid
@@ -35,6 +37,72 @@ def hs_scan(combine, elems, dim: int = 0):
         v = tuple(torch.where(ok, a, b) for a, b in zip(comb, v))
         d *= 2
     return v
+
+
+def _mask(mask, a, b):
+    """where(mask, a, b) over tuples, the mask broadcast over trailing dims."""
+    return tuple(torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y)
+                 for x, y in zip(a, b))
+
+
+def _bcast(identity, shape):
+    return tuple(i.expand(*shape, *i.shape) for i in identity)
+
+
+def _take_rows(elems, idx):
+    """elems (k, n, ...) gathered per row at idx (k, ...) -> (k, ...)."""
+    rows = torch.arange(idx.shape[0], device=idx.device).reshape(-1, *[1] * (idx.dim() - 1))
+    return tuple(x[rows, idx] for x in elems)
+
+
+def within_block_prefix(combine, elems, identity, gq, r, block: int, promote=None):
+    """For each query, the combine of rows gq*block .. gq*block + r of
+    elems: the query's rows are gathered (promoted, if given), those past
+    r masked to the identity, and reduced by a Hillis-Steele scan over the
+    block axis. elems (k, n, ...), gq and r (k, Q) -> (k, Q, ...). The
+    reference's `_within_block_partial` (`ops/msm.py:651-668`) and the
+    same step of `prefix_at_indices`."""
+    ar = torch.arange(block, device=gq.device)
+    rows = _take_rows(elems, gq.unsqueeze(-1) * block + ar)  # (k, Q, block, ...)
+    if promote is not None:
+        rows = promote(rows)
+    keep = ar <= r.unsqueeze(-1)
+    masked = _mask(keep, rows, _bcast(identity, keep.shape))
+    return tuple(x[:, :, -1] for x in hs_scan(combine, masked, dim=2))
+
+
+def prefix_at_indices(combine, elems, identity, q, block: int = 32,
+                      hs_base: int = 1024, leaf_combine=None,
+                      leaf_identity=None, promote=None):
+    """Inclusive prefix-combine of elems[j, 0..q_ji] for each query index
+    (q_ji = -1 gives the identity), for a batch of k rows: elems (k, n,
+    ...), q (k, Q) -> (k, Q, ...). Block totals by a loop of `block`
+    combines, their prefix recursively, and each query's within-block
+    rows; a Hillis-Steele scan at n <= hs_base. With `leaf_combine`, elems
+    are leaves in a cheaper representation: the first level's totals use
+    leaf_combine(acc, leaf), `leaf_identity` pads the leaves and
+    `promote` lifts them for the within-block step. Reference:
+    `ops/scan_utils.py:182-255` (one row)."""
+    k, n = elems[0].shape[:2]
+    leaf = leaf_combine is not None
+    ident_q = _bcast(identity, q.shape)
+    qc = q.clamp(min=0)
+    if n <= hs_base:
+        pref = hs_scan(combine, promote(elems) if leaf else elems, dim=1)
+        return _mask(q >= 0, _take_rows(pref, qc.clamp(max=n - 1)), ident_q)
+    g = -(-n // block)
+    pad = _bcast(leaf_identity if leaf else identity, (k, g * block - n))
+    padded = tuple(torch.cat([x, i.to(x.dtype)], dim=1) for x, i in zip(elems, pad))
+    moved = tuple(x.reshape(k, g, block, *x.shape[2:]) for x in padded)
+    acc = _bcast(identity, (k, g))
+    step = leaf_combine if leaf else combine
+    for b in range(block):
+        acc = step(acc, tuple(x[:, :, b] for x in moved))
+    gq = torch.div(qc, block, rounding_mode="floor")
+    before = prefix_at_indices(combine, acc, identity, gq - 1, block, hs_base)
+    part2 = within_block_prefix(combine, padded, identity, gq, qc - gq * block,
+                                block, promote if leaf else None)
+    return _mask(q >= 0, combine(before, part2), ident_q)
 
 
 class SegmentLayout:

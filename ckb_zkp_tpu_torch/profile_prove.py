@@ -1,6 +1,7 @@
 """Time and profile the port's Groth16 prove (or setup) on one CUDA card.
 
     python -m ckb_zkp_tpu_torch.profile_prove [--log2 20] [--reps 10] [--setup]
+        [--engine rcb|jacobian]
 
 Runs the port's setup for a (2^log2 - 2)-constraint square chain, one
 warm-up prove, `reps` timed proves (median and quartiles of the wall
@@ -8,8 +9,10 @@ clock, each ending in a synchronize; the device memory held before and
 after them), then one prove under torch.profiler: the device's busy time
 (sum of kernel self times), its idle share of the wall clock, and the
 kernels by device time. With `--setup` the timed and profiled runs are
-setups instead (no prove). Prints the card's name and power limit beside
-every number. Needs a CUDA card.
+setups instead (no prove). `--engine jacobian` runs setup and proves on
+the Jacobian MSM engine (`_use_rcb = False` on the card's device groups).
+Prints the card's name and power limit beside every number. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from .bench_circuits import square_chain_shape
 from .host.pairing import get_curve
+from .ops.msm import device_group
 from .schemes import groth16
 
 
@@ -81,13 +85,17 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--setup", action="store_true",
                     help="time and profile the setup instead of the prove")
+    ap.add_argument("--engine", choices=("rcb", "jacobian"), default="rcb",
+                    help="the MSM engine of setup and prove")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: needs a CUDA card", file=sys.stderr)
         return 2
 
-    card = _card()
+    card = f"{_card()}, {args.engine} engine"
     curve = get_curve("bn254")
+    for g in ("g1", "g2"):
+        device_group(curve, g, "cuda")._use_rcb = args.engine == "rcb"
     fr = curve.fr.modulus
     shape = square_chain_shape((1 << args.log2) - 2, fr, seed=7)
 

@@ -1,6 +1,9 @@
 """The port's Groth16 slice against the reference at m = 64: witness map,
 setup queries and proofs, point for point, and the reference verifier's
-verdicts. Tolerance: none."""
+verdicts, through the RCB MSM engine (the default) and the Jacobian one.
+Tolerance: none."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -41,11 +44,34 @@ def ref_params(shape):
         shape, CURVE, *TOXIC, host_mode=True)
 
 
-@pytest.fixture(scope="module")
-def port_params(shape):
+@contextlib.contextmanager
+def _jacobian_engine():
+    """The port's cached CPU groups on the Jacobian engine, for the block."""
+    groups = [device_group(port_curve("bn254"), g, "cpu") for g in ("g1", "g2")]
+    for g in groups:
+        g._use_rcb = False
+    try:
+        yield
+    finally:
+        for g in groups:
+            g._use_rcb = True
+
+
+def _port_setup():
     return groth16.generate_parameters_from_shape(
         port_circuits.square_chain_shape(62, FR), port_curve("bn254"), *TOXIC,
         device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_params(shape):
+    return _port_setup()
+
+
+@pytest.fixture(scope="module")
+def port_params_jacobian(shape):
+    with _jacobian_engine():
+        return _port_setup()
 
 
 @pytest.mark.parametrize("circuit", ["square_chain", "product"])
@@ -64,6 +90,17 @@ def test_witness_map_matches_host(circuit):
 
 
 def test_setup_matches_reference_host_mode(ref_params, port_params, shape):
+    _check_setup(ref_params, port_params, shape)
+
+
+def test_jacobian_setup_matches_reference_host_mode(ref_params, port_params_jacobian,
+                                                     shape):
+    """The same comparison for the Jacobian engine's setup (K9a fixed-base,
+    queries padded to a power of two)."""
+    _check_setup(ref_params, port_params_jacobian, shape)
+
+
+def _check_setup(ref_params, port_params, shape):
     ni, na = shape.num_inputs, shape.num_aux
     assert port_params.padded_queries and not ref_params.padded_queries
     g1 = device_group(port_params.curve, "g1", "cpu")
@@ -95,17 +132,22 @@ def _ref_proof(ref_params, shape, r, s):
 
 
 @pytest.mark.parametrize("key,r,s", [
-    ("reference", 0, 0), ("reference", 3, 4), ("port", 3, 4)])
-def test_proof_matches_reference(ref_params, port_params, shape, key, r, s):
+    ("reference", 0, 0), ("reference", 3, 4), ("port", 3, 4), ("jacobian", 3, 4)])
+def test_proof_matches_reference(ref_params, port_params, port_params_jacobian,
+                                 shape, key, r, s):
     """With the reference's key carried across (exact, host-mode layout) the
     port's proof equals the reference's for the same (r, s); with the port's
     own setup (padded layout), whose queries equal the reference's (test
-    above), it does too."""
+    above), it does too, on either MSM engine ("jacobian": the Jacobian
+    engine's setup and prove)."""
     want = _ref_proof(ref_params, shape, r, s)
-    params = params_from_reference(ref_params, "cpu") if key == "reference" else port_params
+    params = {"reference": lambda: params_from_reference(ref_params, "cpu"),
+              "port": lambda: port_params, "jacobian": lambda: port_params_jacobian}[key]()
     shp = port_circuits.square_chain_shape(62, FR)
     stages = {}
-    proof = groth16.create_proof_from_shape(params, shp, r, s, timings=stages)
+    engine = _jacobian_engine() if key == "jacobian" else contextlib.nullcontext()
+    with engine:
+        proof = groth16.create_proof_from_shape(params, shp, r, s, timings=stages)
     # the prover used (and kept) the shape's one QapMatrices
     q = qap_matrices(shp, params.curve.fr, "cpu")
     assert list(shp._torch_qap_cache.values()) == [q]

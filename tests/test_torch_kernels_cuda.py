@@ -1,4 +1,4 @@
-"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 5
+"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 6
 at a small size. Marked `cuda`; without a card they skip."""
 
 import os
@@ -9,8 +9,10 @@ import torch
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = {"mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
-           "rcb_add", "rcb_madd"}
+RCB_PROVE = {"mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
+             "rcb_add"}
+JAC_PROVE = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
+KERNELS = RCB_PROVE | JAC_PROVE | {"rcb_madd", "ec_madd"}
 
 
 @pytest.fixture
@@ -35,6 +37,13 @@ def test_k6_device_setup_equals_host_mode(smoke):
 
 
 def test_small_setup_and_prove_launch_every_kernel(smoke):
-    setup, prove = smoke.phase_slice(torch.cuda.get_device_name(0), 13)
-    assert setup["rcb_madd"] > 0
-    assert all(prove[k] > 0 for k in KERNELS - {"rcb_madd"})
+    run = smoke.phase_slice(torch.cuda.get_device_name(0), 13)
+    assert run["setup_launches"]["rcb_madd"] > 0
+    assert all(run["prove_launches"][k] > 0 for k in RCB_PROVE)
+
+
+def test_small_jacobian_setup_and_prove_equal_the_rcb_ones(smoke):
+    card = torch.cuda.get_device_name(0)
+    jac = smoke.phase_jacobian(card, smoke.phase_slice(card, 13), 13)
+    assert jac["setup_launches"]["ec_madd"] > 0
+    assert all(jac["prove_launches"][k] > 0 for k in JAC_PROVE)

@@ -115,4 +115,5 @@ def test_cuda_sources_and_build_command():
     assert cuda_build.BUILD_DIR.startswith(PKG_DIR)
     assert set(cuda_build.COUNTS) == {
         "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
-        "rcb_add", "rcb_madd"}
+        "rcb_add", "rcb_madd", "ec_add", "ec_madd", "ec_block_totals_madd",
+        "ec_block_totals_add"}
