@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's Groth16 BN254 setup and prover on one GPU.
 
-    python3 chip_smoke.py              # all phases at 2^20; needs one CUDA card
+    python3 chip_smoke.py              # phases at 2^20 (probes 2^21); needs one CUDA card
     python3 chip_smoke.py --log2 14    # the same at a 2^14 slice
 
 Phases: (1) the card, its power limit, SM clock and the torch/CUDA
@@ -26,7 +26,11 @@ memory behind; (6) the same setup and prove on the Jacobian MSM engine
 every query equal to the RCB setup's limb for limb on the rows both hold
 (the others at infinity), the proof equal to the RCB proof for the same
 (r, s), the verifier's verdicts, and K9a launched by that setup and K8,
-K9b and K9c by that prove.
+K9b and K9c by that prove; (7) the probes (`ckb_zkp_tpu_torch/probes/`):
+K2a and K2b (G1, G2) and the scan probes' kernels P-tot, P-prepk and
+P-chain (G1, every K and block size) against their plain versions at edge
+shapes (the probes' own checks) and at 2^(log2 + 1), then the window and
+scan probes at 2^(log2 + 1), which must launch all five.
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
@@ -51,11 +55,15 @@ import contextlib
 import json
 import os
 import random
-import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from ckb_zkp_tpu_torch.probes.common import (  # noqa: E402
+    FQ_BYTES, IMAD_PER_FQ_MUL, bound, cuda_ms, fq_muls, imad_rate, max_abs_err,
+    rand_field, smi)
+
 SEED = 20261016
 DEVICE = "cuda"
 CSRC = "ckb_zkp_tpu_torch/csrc/"
@@ -70,96 +78,21 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
     "ec_block_totals_madd": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:271"),
     "ec_block_totals_add": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:290"),
+    "scan_prefix_madd_unpacked": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:275"),
+    "scan_prefix_madd_packed": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:225"),
+    "probe_madd_totals": ("probe_scan.cu", "scripts/probe_scan.py:95"),
+    "probe_madd_prefix_packed": ("probe_scan.cu", "scripts/probe_scan2.py:181"),
+    "probe_chain_mul": ("probe_scan.cu", "scripts/probe_scan2.py:94"),
 }
 # the run whose launches each kernel's row reports
 SETUP_KERNELS = {"rcb_madd"}  # the RCB setup
 JAC_SETUP_KERNELS = {"ec_madd"}  # the Jacobian engine's setup
 JAC_PROVE_KERNELS = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-IMAD_PER_SM_CLOCK = 64  # CUDA Programming Guide, compute capability 9.0
-FQ_BYTES = 64  # 16 int32 limbs
-IMAD_PER_FQ_MUL = 2 * (2 * 8 * 8 + 8)  # CIOS over 8 words, low + high IMAD
-_RATE: dict = {}
-
+PROBE_KERNELS = {"scan_prefix_madd_unpacked", "scan_prefix_madd_packed", "probe_madd_totals",
+                 "probe_madd_prefix_packed", "probe_chain_mul"}  # the probes' runs
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi(query: str = "name,power.limit") -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def fq_muls(formula: str, ext: int) -> int:
-    """Fq multiplies of one Alg. 7 add (12) or Alg. 8 mixed add (11); over
-    Fq2 the two multiplies by 3b are Fq2 products too (G1's 3b = 9 is an add
-    chain), and an Fq2 product is 3 Fq products. The Jacobian add's general
-    branch ("jadd", `_add_core`) has 16, the mixed add's ("jmadd") 11, with
-    no curve constant."""
-    if formula in ("jadd", "jmadd"):
-        return {"jadd": 16, "jmadd": 11}[formula] * (3 if ext == 2 else 1)
-    base = {"add": 12, "madd": 11}[formula]
-    return 3 * (base + 2) if ext == 2 else base
-
-
-def imad_rate() -> dict:
-    """The card's 32-bit multiply rate at its maximum SM clock."""
-    if not _RATE:
-        import torch
-
-        mhz = float(smi("clocks.max.sm").split()[0])
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        _RATE.update(sms=sms, sm_mhz=mhz, imad_per_s=IMAD_PER_SM_CLOCK * sms * mhz * 1e6)
-    return _RATE
-
-
-def bound(nbytes: float, imads: float) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / imad_rate()["imad_per_s"] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events, after a warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def max_abs_err(a, b) -> int:
-    """Largest limb difference over tuples of int32 tensors (0 = bit-equal)."""
-    if not isinstance(a, (tuple, list)):
-        a, b = (a,), (b,)
-    return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
-
-
-def rand_field(rng, n: int, shape_tail, df):
-    """n random canonical field elements (limbs below p's top limb), drawn
-    on the card by a generator seeded from `rng`."""
-    import torch
-
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(int(rng.integers(1 << 62)))
-    shape = (n, *shape_tail[:-1], df.L)
-    arr = torch.randint(0, 1 << 16, shape, generator=gen, device=DEVICE, dtype=torch.int32)
-    arr[..., -1] = torch.randint(0, int(df.p_limbs[-1]), shape[:-1], generator=gen,
-                                 device=DEVICE, dtype=torch.int32)
-    return arr
 
 
 def timed_once(fn):
@@ -673,7 +606,8 @@ def phase_slice(card: str, log2: int) -> dict:
         raise AssertionError("a prove left device memory behind")
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the timed prove: {json.dumps(launches)}")
-    rcb_prove = set(KERNELS) - SETUP_KERNELS - JAC_SETUP_KERNELS - JAC_PROVE_KERNELS
+    rcb_prove = (set(KERNELS) - SETUP_KERNELS - JAC_SETUP_KERNELS - JAC_PROVE_KERNELS
+                 - PROBE_KERNELS)
     missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
@@ -753,6 +687,89 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
     return {"setup_launches": setup_launches, "prove_launches": launches}
 
 
+def phase_probes(results: dict, log2: int) -> dict:
+    """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2) and the
+    scan probes' kernels P-tot, P-prepk and P-chain (G1, every K and block
+    size) against their plain versions at edge shapes (flagged leaves and
+    an all-flagged block, B = 5 tail blocks, one block of B = n = 7); then
+    each kernel against its plain version at the probes' N = 2^log2,
+    beside its bound; then the window and scan probes at 2^log2, with the
+    launch counts of that run."""
+    import numpy as np
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, cuda_rcb
+    from ckb_zkp_tpu_torch.ops.limbs import pack_limbs
+    from ckb_zkp_tpu_torch.ops.msm import _RCB_B, device_group
+    from ckb_zkp_tpu_torch.probes import scan, window
+
+    window.check(DEVICE)
+    scan.check(DEVICE)
+    log("probes: K2a, K2b (G1, G2), P-tot, P-prepk, P-chain (every K and block "
+        "size) equal to their plain versions at the edge shapes")
+    rng = np.random.default_rng(SEED + 7)
+    curve = get_curve("bn254")
+    record = Recorder(results)
+    B, N = _RCB_B, 1 << log2
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        rg, ext = dg.rg, dg.cf.ext
+        eb = ext * FQ_BYTES
+        X, Y = (rand_field(rng, N, dg.cf.coord_shape, dg.fq) for _ in range(2))
+        inf = torch.as_tensor(rng.random(N) < 1 / 1024, device=DEVICE)
+        live = N - int(inf.sum())
+        packed = (pack_limbs(X.reshape(N, -1)), pack_limbs(Y.reshape(N, -1)))
+        for name, args, leaf_bytes in (("scan_prefix_madd_unpacked", (X, Y), 2 * N * eb),
+                                       ("scan_prefix_madd_packed", packed, N * eb)):
+            kern = getattr(cuda_rcb, name)
+            plain = getattr(cuda_rcb, name + "_plain")
+            pl, plain_ms = timed_once(lambda: plain(rg, *args, inf, B))
+            k = kern(rg, *args, inf, B)
+            record(name, max_abs_err(k[0] + k[1], pl[0] + pl[1]),
+                   cuda_ms(lambda: kern(rg, *args, inf, B), 3), plain_ms,
+                   f"{group} N={N} B={B}, 1/1024 flagged; probe path",
+                   (leaf_bytes + N + 3 * N * eb + 3 * (N // B) * eb,
+                    live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
+            del pl, k
+        del X, Y, packed, inf
+        torch.cuda.empty_cache()
+
+    dg = device_group(curve, "g1", DEVICE)
+    xw, yw, inf, x = scan.make_inputs(dg, log2, scan.SEED + 1, DEVICE)
+    live = N - int(inf.sum())
+    for name, kern, args, kind in (
+            ("probe_madd_totals", cuda_probe.madd_totals, (dg.rg, xw, yw, inf, B), "tot"),
+            ("probe_madd_prefix_packed", cuda_probe.madd_prefix_packed,
+             (dg.rg, xw, yw, inf, B), "prepk"),
+            ("probe_chain_mul", cuda_probe.chain_mul, (dg.fq, x, B), "chain")):
+        plain = getattr(cuda_probe, kern.__name__ + "_plain")
+        pl, plain_ms = timed_once(lambda: plain(*args))
+        if kind == "prepk":
+            pl = pl[0] + pl[1]
+        err = 0
+        for k in cuda_probe.CHAINS:
+            for t in cuda_probe.THREADS:
+                out = kern(*args, k, t)
+                err = max(err, max_abs_err(out[0] + out[1] if kind == "prepk" else out, pl))
+        record(name, err, cuda_ms(lambda: kern(*args, 1, 64), 3), plain_ms,
+               f"g1 N={N} B={B}, every K and block size; probe path (ms at K = 1, "
+               f"64 threads)", scan.work(kind, N, live))
+        del pl, out
+    del xw, yw, inf, x
+    torch.cuda.empty_cache()
+
+    cuda_build.reset_counts()
+    win = window.measure(log2, 16, 5, DEVICE)
+    sc = scan.measure(log2, 10, DEVICE)
+    launches = dict(cuda_build.COUNTS)
+    log(f"kernel launches in the probes: {json.dumps(launches)}")
+    missing = [k for k in sorted(PROBE_KERNELS) if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the probes: {missing}")
+    return {"launches": launches, "window": win, "scan": sc}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log2", type=int, default=20,
@@ -765,7 +782,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from ckb_zkp_tpu_torch.ops import cuda_build
 
     card = smi()
@@ -794,12 +810,15 @@ def main() -> int:
     t3 = time.perf_counter()
     jac = phase_jacobian(card, run, args.log2)
     t4 = time.perf_counter()
+    probes = phase_probes(results, args.log2 + 1)
+    t5 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
-        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f} [{card}]")
+        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, probes {t5 - t4:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
-        launches = (run["setup_launches"] if name in SETUP_KERNELS
+        launches = (probes["launches"] if name in PROBE_KERNELS
+                    else run["setup_launches"] if name in SETUP_KERNELS
                     else jac["setup_launches"] if name in JAC_SETUP_KERNELS
                     else jac["prove_launches"] if name in JAC_PROVE_KERNELS
                     else run["prove_launches"])[name]

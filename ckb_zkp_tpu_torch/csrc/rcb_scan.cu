@@ -1,7 +1,8 @@
-// K2 / K3 / K4 rcb_scan: replaces the three _scan_fn kernels of
+// K2 / K2a / K2b / K3 / K4 rcb_scan: replaces the _scan_fn kernels of
 // ckb_zkp_tpu/ops/pallas_rcb.py: _scan_prefix_madd_packedf_kernel (K2,
-// mode 0), _scan_prefix_add_kernel (K3, mode 1) and _scan_total_add_kernel
-// (K4, mode 2).
+// mode 0), _scan_prefix_add_kernel (K3, mode 1), _scan_total_add_kernel
+// (K4, mode 2), _scan_prefix_madd_kernel (K2a, mode 3) and
+// _scan_prefix_madd_packed_kernel (K2b, mode 4).
 //
 // Not carried over block by block: the TPU kernels work on limb-major
 // (B, R, SB, 128) tiles sized for VMEM and the MXU, with the sequential
@@ -10,39 +11,57 @@
 // H100 is the integer multiply rate (12 field multiplies per add, 11 per
 // mixed add, 3x that over Fq2) and too few threads: N = 2^20 with B = 32 is
 // 32768 columns per window, so the MSM batches its windows into one launch
-// to widen the grid; a wider, work-split scan is later work. The entry
-// launches on the caller's stream, allocates nothing, does not synchronise
-// and returns cudaGetLastError().
+// to widen the grid; a wider, work-split scan is later work. K2a reads its
+// leaves as 16-bit limb rows, twice K2b's packed words, so it moves more
+// bytes for the same multiplies. The entry launches on the caller's
+// stream, allocates nothing, does not synchronise and returns
+// cudaGetLastError().
 #include "rcb.cuh"
 
 using namespace zkp;
 
 namespace {
 
+// the affine leaf e: 16-bit limb rows (MODE 3) or packed words (MODE 0, 4)
+template <int NW, int EXT, int MODE>
+__device__ __forceinline__ Fe<NW, EXT> load_leaf(const uint32_t* p,
+                                                 long long e) {
+  if constexpr (MODE == 3)
+    return load_limbs<NW, EXT>(p + e * 2 * NW * EXT);
+  else
+    return load_words<NW, EXT>(p + e * NW * EXT);
+}
+
 // Thread g runs the B elements g*B .. g*B+B-1 from the identity, writing
-// each inclusive prefix W[g*B + b] (MODE 0, 1) and the total T[g].
+// each inclusive prefix W[g*B + b] (every MODE but 2) and the total T[g].
 // MODE 0: affine leaves as packed words, the infinity flag in bit 31 of
 //         the top X word (pack_limbs_flag); mixed add (Alg. 8).
 // MODE 1: projective leaves (X, Y, Z limb rows); complete add (Alg. 7).
 // MODE 2: as MODE 1, totals only.
+// MODE 3: affine leaves as limb rows, the flags a bool array; mixed add.
+// MODE 4: affine leaves as packed words (all 32 bits), the flags a bool
+//         array; mixed add.
 template <int NW, int EXT, int MODE>
 __global__ void rcb_scan_kernel(CurveConsts c, uint32_t* wx, uint32_t* wy,
                                 uint32_t* wz, uint32_t* tx, uint32_t* ty,
                                 uint32_t* tz, const uint32_t* x,
                                 const uint32_t* y, const uint32_t* z,
-                                long long ncols, int B) {
+                                const bool* flags, long long ncols, int B) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= ncols) return;
   Pt<NW, EXT> acc = identity<NW, EXT>(c);
   for (int b = 0; b < B; ++b) {
     const long long e = g * B + b;
     if constexpr (MODE == 0) {
-      constexpr int S = NW * EXT;  // packed words per coordinate
-      Fe<NW, EXT> X2 = load_words<NW, EXT>(x + e * S);
-      const Fe<NW, EXT> Y2 = load_words<NW, EXT>(y + e * S);
+      Fe<NW, EXT> X2 = load_leaf<NW, EXT, MODE>(x, e);
+      const Fe<NW, EXT> Y2 = load_leaf<NW, EXT, MODE>(y, e);
       const uint32_t top = X2.v[EXT - 1][NW - 1];
       X2.v[EXT - 1][NW - 1] = top & 0x7FFFFFFFu;
       if (!(top >> 31)) acc = rcb_madd<NW, EXT>(acc, X2, Y2, c);
+    } else if constexpr (MODE == 3 || MODE == 4) {
+      if (!flags[e])
+        acc = rcb_madd<NW, EXT>(acc, load_leaf<NW, EXT, MODE>(x, e),
+                                load_leaf<NW, EXT, MODE>(y, e), c);
     } else {
       acc = rcb_add<NW, EXT>(acc, load_pt<NW, EXT>(x, y, z, e), c);
     }
@@ -58,14 +77,14 @@ template <int MODE>
 void launch_scan(const CurveConsts& c, int ext, uint32_t* wx, uint32_t* wy,
                  uint32_t* wz, uint32_t* tx, uint32_t* ty, uint32_t* tz,
                  const uint32_t* x, const uint32_t* y, const uint32_t* z,
-                 long long ncols, int B, cudaStream_t s) {
+                 const bool* flags, long long ncols, int B, cudaStream_t s) {
   const unsigned grid = blocks_for(ncols, kScanThreads);
   if (ext == 1)
     rcb_scan_kernel<kNW, 1, MODE><<<grid, kScanThreads, 0, s>>>(
-        c, wx, wy, wz, tx, ty, tz, x, y, z, ncols, B);
+        c, wx, wy, wz, tx, ty, tz, x, y, z, flags, ncols, B);
   else
     rcb_scan_kernel<kNW, 2, MODE><<<grid, kScanThreads, 0, s>>>(
-        c, wx, wy, wz, tx, ty, tz, x, y, z, ncols, B);
+        c, wx, wy, wz, tx, ty, tz, x, y, z, flags, ncols, B);
 }
 
 }  // namespace
@@ -73,18 +92,18 @@ void launch_scan(const CurveConsts& c, int ext, uint32_t* wx, uint32_t* wy,
 extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
                             void* wx, void* wy, void* wz, void* tx, void* ty,
                             void* tz, const void* x, const void* y,
-                            const void* z, long long ncols, int B,
-                            void* stream) {
-  if (consts[0] != kNW || ncols <= 0 || B <= 0 || mode < 0 || mode > 2 ||
-      (ext != 1 && ext != 2))
+                            const void* z, const void* flags, long long ncols,
+                            int B, void* stream) {
+  if (consts[0] != kNW || ncols <= 0 || B <= 0 || mode < 0 || mode > 4 ||
+      (ext != 1 && ext != 2) || ((mode == 3 || mode == 4) && !flags))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
   auto w = [](void* p) { return (uint32_t*)p; };
   auto r = [](const void* p) { return (const uint32_t*)p; };
-  decltype(&launch_scan<0>) launch = mode == 0   ? &launch_scan<0>
-                                     : mode == 1 ? &launch_scan<1>
-                                                 : &launch_scan<2>;
-  launch(c, ext, w(wx), w(wy), w(wz), w(tx), w(ty), w(tz), r(x), r(y), r(z),
-         ncols, B, (cudaStream_t)stream);
+  static decltype(&launch_scan<0>) const launch[] = {
+      &launch_scan<0>, &launch_scan<1>, &launch_scan<2>, &launch_scan<3>,
+      &launch_scan<4>};
+  launch[mode](c, ext, w(wx), w(wy), w(wz), w(tx), w(ty), w(tz), r(x), r(y),
+               r(z), (const bool*)flags, ncols, B, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,8 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_scan.cu", "ec_scan.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu",
-           "rcb_madd.cu", "mont_mul.cu")
+SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "ec_add.cu", "ec_madd.cu",
+           "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
 HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -42,6 +42,11 @@ COUNTS = {
     "ec_madd": 0,  # K9a
     "ec_block_totals_madd": 0,  # K9b
     "ec_block_totals_add": 0,  # K9c
+    "scan_prefix_madd_unpacked": 0,  # K2a
+    "scan_prefix_madd_packed": 0,  # K2b
+    "probe_madd_totals": 0,  # P-tot
+    "probe_madd_prefix_packed": 0,  # P-prepk
+    "probe_chain_mul": 0,  # P-chain
 }
 
 _lib = None
@@ -136,7 +141,7 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_add.restype = i
         L.zkp_rcb_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_rcb_madd.restype = i
-        L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 9 + [ll, i, vp]
+        L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 10 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
         L.zkp_ec_add.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_add.restype = i
@@ -144,6 +149,10 @@ def lib() -> ctypes.CDLL:
         L.zkp_ec_madd.restype = i
         L.zkp_ec_scan.argtypes = [vp, i, i] + [vp] * 6 + [ll, i, vp]
         L.zkp_ec_scan.restype = i
+        L.zkp_probe_madd_scan.argtypes = [vp, i, i, i, i] + [vp] * 9 + [ll, i, vp]
+        L.zkp_probe_madd_scan.restype = i
+        L.zkp_probe_chain_mul.argtypes = [vp, i, i, vp, vp, ll, i, vp]
+        L.zkp_probe_chain_mul.restype = i
         _lib = L
     return _lib
 

@@ -11,16 +11,20 @@ projective point and an affine point, and keeps the projective point where
 the affine one's infinity flag is set. The flag is a bool array of the
 batch shape. The setup's fixed-base MSM is its caller.
 
-K2, K3 and K4 replace the three `_scan_fn` kernels of `ops/pallas_rcb.py`:
+K2, K3 and K4 replace three `_scan_fn` kernels of `ops/pallas_rcb.py`:
 `_scan_prefix_madd_packedf_kernel` (K2, sorted affine leaves packed two
 limbs per word with the infinity flag in bit 31 of the top X word, mixed
 add), `_scan_prefix_add_kernel` (K3, projective leaves) and
-`_scan_total_add_kernel` (K4, block totals only). On Hopper they are one
-templated kernel (`rcb_scan_kernel`, mode 0/1/2): thread g runs the B
+`_scan_total_add_kernel` (K4, block totals only). K2a
+(`_scan_prefix_madd_kernel`, `:275`) and K2b
+(`_scan_prefix_madd_packed_kernel`, `:225`) are K2 with the flags in a
+separate bool array, over limb rows (K2a, twice K2b's leaf bytes) or
+packed words (K2b); the window probes launch them. On Hopper all five are
+one templated kernel (`rcb_scan_kernel`, modes 0-4): thread g runs the B
 elements g*B .. g*B+B-1 from the identity (0 : 1 : 0), writing every
-inclusive prefix W[g*B + b] (K2, K3) and the block total T[g]. W is indexed
-by position, T by block, as in the reference. The chain of B dependent adds
-per thread is latency bound and the grid is N/B threads; the MSM widens it
+inclusive prefix W[g*B + b] (all but K4) and the block total T[g]. W is
+indexed by position, T by block, as in the reference. Each thread runs a
+chain of B dependent adds and the grid is N/B threads; the MSM widens it
 by scanning all of a batch of windows in one launch.
 
 Layouts: points are tuples (X, Y, Z) of (M, L) or (M, 2, L) int32 limb
@@ -136,23 +140,27 @@ def pack_limbs_flag(rg, X, Y, inf):
     return xp, pack_limbs(Y.reshape(n, -1))
 
 
+def unpack_coord(rg, words):
+    """(M, R/2) packed words -> (M, *coord_shape) int32 limbs."""
+    return unpack_words(words).to(torch.int32).reshape(words.shape[0], *rg.cf.coord_shape)
+
+
 def unpack_leaves(rg, xw, yw):
     """Packed words with flag -> (X, Y, inf) standard int32 coordinates."""
-    M = xw.shape[0]
-    cs = rg.cf.coord_shape
-    inf = ((xw[:, -1].to(torch.int64) >> 31) & 1).bool()
-    X = unpack_words(xw)
-    X[:, -1] &= MASK >> 1  # clear the flag bit from the top limb
-    Y = unpack_words(yw)
-    return (X.to(torch.int32).reshape(M, *cs), Y.to(torch.int32).reshape(M, *cs), inf)
+    inf = xw[:, -1] < 0  # bit 31 of the top X word
+    X = unpack_coord(rg, xw)
+    X.reshape(X.shape[0], -1)[:, -1] &= MASK >> 1  # clear the flag bit from the top limb
+    return X, unpack_coord(rg, yw), inf
 
 
-def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool):
+def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, flags=None):
     cs = rg.cf.coord_shape
     dev = ins[0].device
     G = M // B
     for i, t in enumerate(ins):
         cuda_build.check_tensor(t, f"rcb_scan input {i}")
+    if flags is not None:
+        cuda_build.check_tensor(flags, "rcb_scan flags", (M,), torch.bool)
     W = [torch.empty((M, *cs), dtype=torch.int32, device=dev) for _ in range(3)] \
         if with_w else [None] * 3
     T = [torch.empty((G, *cs), dtype=torch.int32, device=dev) for _ in range(3)]
@@ -160,7 +168,8 @@ def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool):
     rc = cuda_build.lib().zkp_rcb_scan(
         rg.kconsts.ctypes.data, rg.cf.ext, mode, *_launch_args(W),
         *_launch_args(T), ins[0].data_ptr(), ins[1].data_ptr(),
-        None if z is None else z.data_ptr(), G, B,
+        None if z is None else z.data_ptr(),
+        None if flags is None else flags.data_ptr(), G, B,
         cuda_build.stream_ptr(T[0]),
     )
     return rc, (tuple(W) if with_w else None), tuple(T)
@@ -180,6 +189,34 @@ def scan_prefix_madd(rg, xw, yw, B: int):
     rc, W, T = _scan_launch(rg, 0, (xw.contiguous(), yw.contiguous()), M, B, True)
     cuda_build.COUNTS["scan_prefix_madd"] += 1
     cuda_build.check(rc, "scan_prefix_madd")
+    return W, T
+
+
+def scan_prefix_madd_unpacked(rg, X, Y, inf, B: int):
+    """K2a: sorted affine leaves as limb rows X, Y (M = G*B, *coord_shape)
+    with the flags inf (M,) bool -> (W (M,), T (G,))."""
+    M = X.shape[0]
+    _check_blocks(M, B)
+    if X.device.type == "cpu":
+        return scan_prefix_madd_unpacked_plain(rg, X, Y, inf, B)
+    rc, W, T = _scan_launch(rg, 3, (X.contiguous(), Y.contiguous()), M, B, True,
+                            inf.contiguous())
+    cuda_build.COUNTS["scan_prefix_madd_unpacked"] += 1
+    cuda_build.check(rc, "scan_prefix_madd_unpacked")
+    return W, T
+
+
+def scan_prefix_madd_packed(rg, xw, yw, inf, B: int):
+    """K2b: sorted affine leaves as packed words xw, yw (M, R/2) (`pack_limbs`,
+    no flag bit) with the flags inf (M,) bool -> (W (M,), T (G,))."""
+    M = xw.shape[0]
+    _check_blocks(M, B)
+    if xw.device.type == "cpu":
+        return scan_prefix_madd_packed_plain(rg, xw, yw, inf, B)
+    rc, W, T = _scan_launch(rg, 4, (xw.contiguous(), yw.contiguous()), M, B, True,
+                            inf.contiguous())
+    cuda_build.COUNTS["scan_prefix_madd_packed"] += 1
+    cuda_build.check(rc, "scan_prefix_madd_packed")
     return W, T
 
 
@@ -232,6 +269,16 @@ def _scan_plain(rg, leaves, B: int, step, with_w: bool):
 def scan_prefix_madd_plain(rg, xw, yw, B: int):
     rgp = rg.plain
     return _scan_plain(rgp, unpack_leaves(rg, xw, yw), B, rgp.madd, True)
+
+
+def scan_prefix_madd_unpacked_plain(rg, X, Y, inf, B: int):
+    rgp = rg.plain
+    return _scan_plain(rgp, (X, Y, inf), B, rgp.madd, True)
+
+
+def scan_prefix_madd_packed_plain(rg, xw, yw, inf, B: int):
+    return scan_prefix_madd_unpacked_plain(
+        rg, unpack_coord(rg, xw), unpack_coord(rg, yw), inf, B)
 
 
 def scan_prefix_add_plain(rg, pts, B: int):

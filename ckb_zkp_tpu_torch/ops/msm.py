@@ -37,7 +37,8 @@ import torch
 
 from ..host.curves import AffinePoint
 from .cuda_ec import block_totals_add, block_totals_madd, ec_madd
-from .cuda_rcb import pack_limbs_flag, scan_prefix_add, scan_prefix_madd, scan_total_add
+from .cuda_rcb import (pack_limbs_flag, scan_prefix_add, scan_prefix_madd,
+                       scan_prefix_madd_unpacked, scan_total_add)
 from .ec import (DeviceFq2, ec_add, ec_double, ec_neg, point_infinity, point_select,
                  to_affine)
 from .field import device_field
@@ -86,6 +87,34 @@ def _unflat(pts, k: int):
 
 def _take(pts, rows, idx):
     return tuple(c[rows, idx] for c in pts)
+
+
+def _scan_prefix_madd(rg, leaves, B: int):
+    """Sorted affine leaves (X, Y, inf) -> (w_get(q): the inclusive prefixes
+    at positions q, T (G,) block totals), through K2a over the leaves
+    padded with flagged ones to a multiple of B. Reference
+    `_scan_prefix_madd` (`ops/msm.py:113-143`), whose kernel branch is K2a.
+    As there, the prover does not call it (`_msm_rcb` scans packed leaves
+    with K2); the window probe does."""
+    X, Y, inf = leaves
+    n = inf.shape[0]
+    extra = _cdiv(n, B) * B - n
+    if extra:
+        X = torch.cat([X, X.new_zeros((extra, *X.shape[1:]))])
+        Y = torch.cat([Y, Y.new_zeros((extra, *Y.shape[1:]))])
+        inf = torch.cat([inf, inf.new_ones((extra,))])
+    W, T = scan_prefix_madd_unpacked(rg, X, Y, inf, B)
+    return (lambda q: tuple(w[q] for w in W)), T
+
+
+def _bucket_ends(digits, nb: int):
+    """q (k, nb): for each row of digits, the last position of bucket b in
+    the row sorted by digit (that of the bucket before where b is empty, -1
+    before the first non-empty bucket)."""
+    k = digits.shape[0]
+    rows = torch.arange(k, device=digits.device).unsqueeze(1)
+    hist = torch.bincount((digits + rows * nb).reshape(-1), minlength=k * nb)
+    return hist.reshape(k, nb).cumsum(1) - 1
 
 
 def _boundary_before(rg, T, j, ident_q):
@@ -316,24 +345,35 @@ class DeviceCurveGroup:
 
     def _windows(self, Xp, Yp, digits, c: int):
         """Window sums sum_b b * B_b for a (k, npad) batch of digit rows."""
-        rg, cf = self.rg, self.cf
-        B = _RCB_B
         k, npad = digits.shape
-        nb = 1 << c
-        dev = digits.device
         order = torch.sort(digits, dim=1).indices
         xs = Xp[order].reshape(k * npad, -1)
         ys = Yp[order].reshape(k * npad, -1)
-        W, T = scan_prefix_madd(rg, xs, ys, B)
-        T = _unflat(T, k)
-        rows = torch.arange(k, device=dev).unsqueeze(1)
-        hist = torch.bincount((digits + rows * nb).reshape(-1), minlength=k * nb)
-        q = hist.reshape(k, nb).cumsum(1) - 1
+        W, T = scan_prefix_madd(self.rg, xs, ys, _RCB_B)
+        return self._weigh_buckets(self._bucket_prefixes(W, T, digits, c), c)
+
+    def _bucket_prefixes(self, W, T, digits, c: int):
+        """E (k, nb): each row's inclusive prefix of its sorted leaves at
+        the end of each bucket, E_b = prefix(T, g_b - 1) + W[q_b] (the
+        identity before the first non-empty bucket), from a scan's W
+        (k * npad,) and block totals T (k * npad / B,)."""
+        rg = self.rg
+        k, npad = digits.shape
+        nb = 1 << c
+        q = _bucket_ends(digits, nb)
         qc = q.clamp(min=0)
+        rows = torch.arange(k, device=digits.device).unsqueeze(1)
         e_wb = tuple(w[rows * npad + qc] for w in W)
         ident_q = rg.identity((k, nb))
-        before = _boundary_before(rg, T, torch.div(qc, B, rounding_mode="floor") - 1, ident_q)
-        E = point_select(cf, q >= 0, rg.add(before, e_wb), ident_q)
+        before = _boundary_before(rg, _unflat(T, k),
+                                  torch.div(qc, _RCB_B, rounding_mode="floor") - 1, ident_q)
+        return point_select(self.cf, q >= 0, rg.add(before, e_wb), ident_q)
+
+    def _weigh_buckets(self, E, c: int):
+        """sum_b b * B_b per row from the bucket-end prefixes E (k, nb): it
+        telescopes to (2^c - 1) E_last - sum_{b < nb-1} E_b."""
+        rg = self.rg
+        nb = 1 << c
         e_last = tuple(e[:, nb - 1] for e in E)
         sum_e = _reduce_pts(rg, tuple(e[:, : nb - 1] for e in E))
         t = _scale_pow2_minus1(rg, e_last, c)

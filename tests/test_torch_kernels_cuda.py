@@ -1,4 +1,4 @@
-"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 6
+"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 7
 at a small size. Marked `cuda`; without a card they skip."""
 
 import os
@@ -47,3 +47,12 @@ def test_small_jacobian_setup_and_prove_equal_the_rcb_ones(smoke):
     jac = smoke.phase_jacobian(card, smoke.phase_slice(card, 13), 13)
     assert jac["setup_launches"]["ec_madd"] > 0
     assert all(jac["prove_launches"][k] > 0 for k in JAC_PROVE)
+
+
+def test_probe_kernels_bit_equal_and_launched_by_the_probes(smoke):
+    results = {}
+    out = smoke.phase_probes(results, 13)
+    assert set(results) == smoke.PROBE_KERNELS
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
+    assert all(out["launches"][k] > 0 for k in smoke.PROBE_KERNELS)
+    assert out["window"]["stages_ms"] and out["scan"]["variants"]

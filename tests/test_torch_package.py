@@ -14,6 +14,7 @@ import pytest
 import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import convert
 from ckb_zkp_tpu_torch.ops import cuda_build, field, limbs, msm, ntt
+from ckb_zkp_tpu_torch.probes import common, scan, window
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
@@ -44,14 +45,37 @@ print("PROVED_WITHOUT_JAX")
 """
 
 
-def test_m64_prove_runs_without_jax():
+_PROBES_WITHOUT_JAX = """
+import os, sys
+import ckb_zkp_tpu_torch.probes.scan
+import ckb_zkp_tpu_torch.probes.window
+assert "jax" not in sys.modules, "a probe imported jax"
+jax_dir = os.path.realpath(sys.argv[1]) + os.sep
+loaded = [name for name, mod in list(sys.modules.items())
+          if os.path.realpath(getattr(mod, "__file__", None) or "").startswith(jax_dir)]
+assert not loaded, f"files of the JAX package were loaded: {loaded}"
+print("PROBES_WITHOUT_JAX")
+"""
+
+
+def _run_without_jax(script: str):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
-    res = subprocess.run(
-        [sys.executable, "-c", _PROVE_WITHOUT_JAX, JAX_PKG_DIR], cwd=REPO,
+    return subprocess.run(
+        [sys.executable, "-c", script, JAX_PKG_DIR], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=300,
     )
+
+
+def test_probes_import_without_jax():
+    res = _run_without_jax(_PROBES_WITHOUT_JAX)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "PROBES_WITHOUT_JAX" in res.stdout
+
+
+def test_m64_prove_runs_without_jax():
+    res = _run_without_jax(_PROVE_WITHOUT_JAX)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "PROVED_WITHOUT_JAX" in res.stdout
 
@@ -98,6 +122,9 @@ def test_source_scan_rejects_the_alias_loader():
     (convert.params_from_reference, "device"), (qap.qap_matrices, "device"),
     (qap.QapMatrices.__init__, "device"),
     (generator.generate_parameters_from_shape, "device"),
+    (common.rand_field, "device"), (window.check, "device"), (window.measure, "device"),
+    (window.make_inputs, "device"), (scan.check, "device"), (scan.measure, "device"),
+    (scan.make_inputs, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
@@ -116,4 +143,5 @@ def test_cuda_sources_and_build_command():
     assert set(cuda_build.COUNTS) == {
         "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
         "rcb_add", "rcb_madd", "ec_add", "ec_madd", "ec_block_totals_madd",
-        "ec_block_totals_add"}
+        "ec_block_totals_add", "scan_prefix_madd_unpacked", "scan_prefix_madd_packed",
+        "probe_madd_totals", "probe_madd_prefix_packed", "probe_chain_mul"}
