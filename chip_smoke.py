@@ -29,8 +29,14 @@ every query equal to the RCB setup's limb for limb on the rows both hold
 K9b and K9c by that prove; (7) the probes (`ckb_zkp_tpu_torch/probes/`):
 K2a and K2b (G1, G2) and the scan probes' kernels P-tot, P-prepk and
 P-chain (G1, every K and block size) against their plain versions at edge
-shapes (the probes' own checks) and at 2^(log2 + 1), then the window and
-scan probes at 2^(log2 + 1), which must launch all five.
+shapes (the probes' own checks) and at 2^(log2 + 1); the g-major P-tot and
+P-prepk (P12, P13) and P-tot on the tensor-core Montgomery reduction
+(P18 g-major, P19), at every block size, at edge shapes and at
+2^(log2 + 1), P18 and P19 also against P-tot's kernel; the mxu probe's
+kernels (P14 u32 op chains, P15 int8 band matmuls, P16 and P17 multiply
+chains, CIOS and tensor-core, P17 also against P16) at edge shapes and at
+their full sizes; then the window, scan and mxu probes, which must launch
+all thirteen.
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
@@ -38,9 +44,13 @@ once; an Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s and its 32-bit
 multiply instructions (an 8-word CIOS product is 2 * 8^2 + 8 word
 products, each a low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD
 per SM per clock at the SM's maximum clock, counting the multiplies this
-run's data needs (a flagged leaf or an add to infinity needs none). No
-single PyTorch call computes any of these functions, so `library_ms` is
-null.
+run's data needs (a flagged leaf or an add to infinity needs none), and
+int8 tensor-core operations over 1,979 TOPS (P15; the tensor-core
+multiply's reduction, whose product counts 2 * 8^2 IMADs); P14's steps
+at one op each, at the same 64 per SM per clock. No single PyTorch call computes any of
+these functions, so `library_ms` is null, except for P15: one
+`torch._int_mm` of its matmul step over the whole batch, a yardstick the
+port never calls.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table. Without a
@@ -83,13 +93,24 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "probe_madd_totals": ("probe_scan.cu", "scripts/probe_scan.py:95"),
     "probe_madd_prefix_packed": ("probe_scan.cu", "scripts/probe_scan2.py:181"),
     "probe_chain_mul": ("probe_scan.cu", "scripts/probe_scan2.py:94"),
+    "probe_gmajor_totals": ("probe_scan.cu", "scripts/probe_scan5.py:134"),
+    "probe_gmajor_prefix": ("probe_scan.cu", "scripts/probe_scan5.py:205"),
+    "probe_u32_ops": ("probe_mxu.cu", "scripts/probe_mxu.py:77"),
+    "probe_band_mma": ("probe_mxu.cu", "scripts/probe_mxu.py:121"),
+    "probe_mul_chain_cios": ("probe_mxu.cu", "scripts/probe_mxu2.py:95"),
+    "probe_mul_chain_tc": ("probe_mxu.cu", "scripts/probe_mxu2.py:110"),
+    "probe_gmajor_totals_tc": ("probe_scan.cu", "scripts/probe_scan6.py:160"),
+    "probe_madd_totals_tc": ("probe_scan.cu", "scripts/probe_scan7.py:177"),
 }
 # the run whose launches each kernel's row reports
 SETUP_KERNELS = {"rcb_madd"}  # the RCB setup
 JAC_SETUP_KERNELS = {"ec_madd"}  # the Jacobian engine's setup
 JAC_PROVE_KERNELS = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
 PROBE_KERNELS = {"scan_prefix_madd_unpacked", "scan_prefix_madd_packed", "probe_madd_totals",
-                 "probe_madd_prefix_packed", "probe_chain_mul"}  # the probes' runs
+                 "probe_madd_prefix_packed", "probe_chain_mul", "probe_gmajor_totals",
+                 "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
+                 "probe_mul_chain_cios", "probe_mul_chain_tc", "probe_gmajor_totals_tc",
+                 "probe_madd_totals_tc"}  # the probes' runs
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -157,7 +178,7 @@ class Recorder:
     def __init__(self, results: dict):
         self.results = results
 
-    def __call__(self, name, err, ms, plain_ms, what, work=None):
+    def __call__(self, name, err, ms, plain_ms, what, work=None, library_ms=None):
         line = (f"kernel {name} [{what}]: max_abs_err={err} kernel_ms={ms:.6f} "
                 f"plain_ms={plain_ms:.6f}")
         b = bound(*work) if work is not None else None
@@ -169,7 +190,7 @@ class Recorder:
         r = self.results.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if b is not None and "ms" not in r:
-            r.update(ms=ms, plain_ms=plain_ms, **b)
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
 def phase_kernels(results: dict, log2: int) -> None:
@@ -688,13 +709,15 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
 
 
 def phase_probes(results: dict, log2: int) -> dict:
-    """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2) and the
-    scan probes' kernels P-tot, P-prepk and P-chain (G1, every K and block
-    size) against their plain versions at edge shapes (flagged leaves and
-    an all-flagged block, B = 5 tail blocks, one block of B = n = 7); then
-    each kernel against its plain version at the probes' N = 2^log2,
-    beside its bound; then the window and scan probes at 2^log2, with the
-    launch counts of that run."""
+    """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2), the
+    scan probes' kernels P-tot, P-prepk, P-chain (G1, every K and block
+    size), P12, P13, P18 and P19 (every block size) against their plain
+    versions at edge shapes (flagged leaves and an all-flagged block, 67
+    columns, B = 5 tail blocks, one block of B = n = 7), and the mxu
+    probe's P14-P17; then each kernel against its plain version at the
+    probes' N = 2^log2 (P14-P17 at the mxu probe's sizes), beside its
+    bound; then the window, scan and mxu probes, with the launch counts of
+    that run."""
     import numpy as np
     import torch
 
@@ -702,12 +725,15 @@ def phase_probes(results: dict, log2: int) -> dict:
     from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, cuda_rcb
     from ckb_zkp_tpu_torch.ops.limbs import pack_limbs
     from ckb_zkp_tpu_torch.ops.msm import _RCB_B, device_group
-    from ckb_zkp_tpu_torch.probes import scan, window
+    from ckb_zkp_tpu_torch.probes import mxu, scan, window
 
     window.check(DEVICE)
     scan.check(DEVICE)
+    mxu.check(DEVICE)
     log("probes: K2a, K2b (G1, G2), P-tot, P-prepk, P-chain (every K and block "
-        "size) equal to their plain versions at the edge shapes")
+        "size), P12, P13, P18, P19 (every block size), P14 (every op), P15 "
+        "(n_mm 1, 8, 32) and P16, P17 (nmul 1, 4) equal to their plain versions "
+        "at the edge shapes")
     rng = np.random.default_rng(SEED + 7)
     curve = get_curve("bn254")
     record = Recorder(results)
@@ -756,18 +782,123 @@ def phase_probes(results: dict, log2: int) -> dict:
                f"g1 N={N} B={B}, every K and block size; probe path (ms at K = 1, "
                f"64 threads)", scan.work(kind, N, live))
         del pl, out
+    tensor_core_probes(record, dg, xw, yw, inf, B)
     del xw, yw, inf, x
     torch.cuda.empty_cache()
 
     cuda_build.reset_counts()
     win = window.measure(log2, 16, 5, DEVICE)
     sc = scan.measure(log2, 10, DEVICE)
+    mx = mxu.measure(10, DEVICE)
     launches = dict(cuda_build.COUNTS)
     log(f"kernel launches in the probes: {json.dumps(launches)}")
     missing = [k for k in sorted(PROBE_KERNELS) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the probes: {missing}")
-    return {"launches": launches, "window": win, "scan": sc}
+    return {"launches": launches, "window": win, "scan": sc, "mxu": mx}
+
+
+def tensor_core_probes(record, dg, xw, yw, inf, B: int) -> None:
+    """P12, P13, P18 and P19 (every block size) on the scan probe's leaves,
+    P18 and P19 also bit for bit against P-tot's kernel; P14 (every op), P15
+    (n_mm 8, 32) and P16, P17 (nmul 1, 4) at the mxu probe's full sizes, P17
+    also against P16; each against its plain version, beside its bound. The
+    table's ms are at 64 threads per block, nmul 1 and n_mm 8."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_probe
+    from ckb_zkp_tpu_torch.probes import mxu, scan
+
+    rg, N = dg.rg, xw.shape[0]
+    live = N - int(inf.sum())
+    want_t, plain_t = timed_once(lambda: cuda_probe.madd_totals_plain(rg, xw, yw, inf, B))
+    want_w, plain_w = timed_once(lambda: cuda_probe.madd_prefix_packed_plain(
+        rg, xw, yw, inf, B))
+    k_tot = cuda_probe.madd_totals(rg, xw, yw, inf, B, 1, 64)
+    errs = {n: 0 for n in ("probe_gmajor_totals", "probe_gmajor_prefix",
+                           "probe_gmajor_totals_tc", "probe_madd_totals_tc")}
+    for t in cuda_probe.THREADS:
+        g = scan.gmajor_leaves(xw, yw, inf, t, B)
+        W, T = cuda_probe.gmajor_prefix(rg, *g, B, t)
+        want_g = cuda_probe.to_gmajor(torch.cat(want_w[0], dim=1), B, t)
+        outs = {"probe_gmajor_totals": cuda_probe.gmajor_totals(rg, *g, B, t),
+                "probe_gmajor_totals_tc": cuda_probe.gmajor_totals(rg, *g, B, t, "tc"),
+                "probe_madd_totals_tc": cuda_probe.madd_totals(rg, xw, yw, inf, B, 1, t,
+                                                               "tc")}
+        errs["probe_gmajor_prefix"] = max(errs["probe_gmajor_prefix"], max_abs_err(
+            (W, *T), (want_g, *want_w[1])))
+        for name, out in outs.items():
+            errs[name] = max(errs[name], max_abs_err(out, want_t))
+            if name != "probe_gmajor_totals" and max_abs_err(out, k_tot):
+                raise AssertionError(f"{name} != P-tot's kernel (threads={t})")
+        del g, W, T, want_g, outs
+    log(f"probes: P18 and P19 equal P-tot's kernel limb for limb at N={N}, every "
+        f"block size")
+    g64 = scan.gmajor_leaves(xw, yw, inf, 64, B)
+    what = f"g1 N={N} B={B}, every block size; probe path (ms at 64 threads)"
+    for name, kind, plain_ms, fn in (
+            ("probe_gmajor_totals", "tot", plain_t,
+             lambda: cuda_probe.gmajor_totals(rg, *g64, B, 64)),
+            ("probe_gmajor_prefix", "prepk", plain_w,
+             lambda: cuda_probe.gmajor_prefix(rg, *g64, B, 64)),
+            ("probe_gmajor_totals_tc", "tot_tc", plain_t,
+             lambda: cuda_probe.gmajor_totals(rg, *g64, B, 64, "tc")),
+            ("probe_madd_totals_tc", "tot_tc", plain_t,
+             lambda: cuda_probe.madd_totals(rg, xw, yw, inf, B, 1, 64, "tc"))):
+        record(name, errs[name], cuda_ms(fn, 3), plain_ms, what, scan.work(kind, N, live))
+    del g64, want_t, want_w, k_tot
+    torch.cuda.empty_cache()
+
+    x, x8, a, b = mxu.make_inputs(device=DEVICE)
+    n_el = x.numel() // 2
+    for op in cuda_probe.U32_OPS:
+        pl, plain_ms = timed_once(lambda: cuda_probe.u32_ops_plain(x, op))
+        record("probe_u32_ops", max_abs_err(cuda_probe.u32_ops(x, op), pl),
+               cuda_ms(lambda: cuda_probe.u32_ops(x, op), 100), plain_ms,
+               f"{x.shape[1] // 8} tiles of 8 x 128, op {op}; probe path",
+               mxu.work("u32", n_el))
+    m2d = cuda_probe.band_mma_matrix(DEVICE)
+    tiles = x8.shape[1] // 8
+    lib_ms = int_mm_ms(m2d, x8)
+    for n_mm in (8, 32):
+        pl, plain_ms = timed_once(lambda: cuda_probe.band_mma_plain(m2d, x8, n_mm))
+        record("probe_band_mma", max_abs_err(cuda_probe.band_mma(m2d, x8, n_mm), pl),
+               cuda_ms(lambda: cuda_probe.band_mma(m2d, x8, n_mm), 5), plain_ms,
+               f"{tiles} tiles, n_mm={n_mm}; probe path", mxu.work("band", tiles, n_mm=n_mm),
+               lib_ms)
+    df = dg.fq
+    for nmul in (1, 4):
+        outs = {}
+        for red in cuda_probe.REDS:
+            name = f"probe_mul_chain_{red}"
+            pl, plain_ms = timed_once(lambda: cuda_probe.mul_chain_plain(df, a, b, nmul, red))
+            outs[red] = cuda_probe.mul_chain(df, a, b, nmul, red)
+            record(name, max_abs_err(outs[red], pl),
+                   cuda_ms(lambda: cuda_probe.mul_chain(df, a, b, nmul, red), 10), plain_ms,
+                   f"fq n={a.shape[0]}, nmul={nmul}; probe path", mxu.work(red, a.shape[0], nmul))
+        if max_abs_err(outs["tc"], outs["cios"]):
+            raise AssertionError(f"P17 != P16 (nmul={nmul})")
+    log(f"probes: P17 equals P16 limb for limb at n={a.shape[0]}, nmul 1 and 4")
+
+
+def int_mm_ms(m2d, x8):
+    """The library yardstick of P15's matmul step alone: one
+    `torch._int_mm` of M2d (256, 256) by the whole batch's t8 (256, 128
+    tiles), int8 in, int32 out. The port never calls it. None, with a line
+    saying so, if the call refuses the shape."""
+    import torch
+
+    tiles = x8.shape[1] // 8
+    t8 = ((x8 & 0xFF) - 128).to(torch.int8).reshape(32, tiles, 8, 128)
+    t8 = t8.permute(0, 2, 1, 3).reshape(256, tiles * 128).contiguous()
+    try:
+        ms = cuda_ms(lambda: torch._int_mm(m2d, t8), 10)
+    except RuntimeError as e:
+        log(f"library: torch._int_mm refused (256, 256) x (256, {tiles * 128}): {e}")
+        return None
+    log(f"library: torch._int_mm (256, 256) x (256, {tiles * 128}) int8: {ms:.6f} ms, "
+        f"the matmul of one P15 step alone")
+    return ms
 
 
 def main() -> int:
@@ -829,7 +960,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

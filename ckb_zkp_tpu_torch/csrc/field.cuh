@@ -167,6 +167,20 @@ __device__ __forceinline__ Fe<NW, EXT> fe_mul(const Fe<NW, EXT>& a,
   return r;
 }
 
+// The CIOS multiply as a multiply policy, for code generic in its field
+// multiply (rcb.cuh rcb_madd); mont_tc.cuh TcMul is the other. Both are
+// built from (fragment table, shared slice), which CIOS does not use.
+struct CiosMul {
+  __device__ __forceinline__ CiosMul() {}
+  __device__ __forceinline__ CiosMul(const uint4*, uint32_t*) {}
+  template <int NW, int EXT>
+  __device__ __forceinline__ Fe<NW, EXT> operator()(const Fe<NW, EXT>& a,
+                                                    const Fe<NW, EXT>& b,
+                                                    const CurveConsts& c) const {
+    return fe_mul<NW, EXT>(a, b, c);
+  }
+};
+
 template <int NW, int EXT>
 __device__ __forceinline__ Fe<NW, EXT> fe_zero() {
   Fe<NW, EXT> r;

@@ -84,19 +84,21 @@ __device__ __forceinline__ Pt<NW, EXT> rcb_add(const Pt<NW, EXT>& p,
 }
 
 // Alg. 8 (Q = (x2, y2, 1), Q not the identity), as ops/rcb.py madd_noinf.
-template <int NW, int EXT>
+// Its eleven multiplies (the two by 3b aside) go through the policy mul
+// (CIOS by default; mont_tc.cuh TcMul in the tensor-core scan probes).
+template <int NW, int EXT, class Mul = CiosMul>
 __device__ __forceinline__ Pt<NW, EXT> rcb_madd(const Pt<NW, EXT>& p,
                                                 const Fe<NW, EXT>& X2,
                                                 const Fe<NW, EXT>& Y2,
-                                                const CurveConsts& c) {
+                                                const CurveConsts& c,
+                                                const Mul& mul = Mul()) {
   using F = Fe<NW, EXT>;
-  F t0 = fe_mul<NW, EXT>(p.X, X2, c);
-  F t1 = fe_mul<NW, EXT>(p.Y, Y2, c);
-  F t3 = fe_mul<NW, EXT>(fe_add<NW, EXT>(X2, Y2, c),
-                         fe_add<NW, EXT>(p.X, p.Y, c), c);
+  F t0 = mul(p.X, X2, c);
+  F t1 = mul(p.Y, Y2, c);
+  F t3 = mul(fe_add<NW, EXT>(X2, Y2, c), fe_add<NW, EXT>(p.X, p.Y, c), c);
   t3 = fe_sub<NW, EXT>(t3, fe_add<NW, EXT>(t0, t1, c), c);
-  F t4 = fe_add<NW, EXT>(fe_mul<NW, EXT>(X2, p.Z, c), p.X, c);
-  F t5 = fe_add<NW, EXT>(fe_mul<NW, EXT>(Y2, p.Z, c), p.Y, c);
+  F t4 = fe_add<NW, EXT>(mul(X2, p.Z, c), p.X, c);
+  F t5 = fe_add<NW, EXT>(mul(Y2, p.Z, c), p.Y, c);
   F X3 = fe_add<NW, EXT>(t0, t0, c);
   t0 = fe_add<NW, EXT>(X3, t0, c);
   F t2 = fe_mul_b3<NW, EXT>(p.Z, c);
@@ -104,12 +106,9 @@ __device__ __forceinline__ Pt<NW, EXT> rcb_madd(const Pt<NW, EXT>& p,
   t1 = fe_sub<NW, EXT>(t1, t2, c);
   F Y3 = fe_mul_b3<NW, EXT>(t4, c);
   Pt<NW, EXT> r;
-  r.X = fe_sub<NW, EXT>(fe_mul<NW, EXT>(t3, t1, c),
-                        fe_mul<NW, EXT>(t5, Y3, c), c);
-  r.Y = fe_add<NW, EXT>(fe_mul<NW, EXT>(t1, Z3, c),
-                        fe_mul<NW, EXT>(Y3, t0, c), c);
-  r.Z = fe_add<NW, EXT>(fe_mul<NW, EXT>(Z3, t5, c),
-                        fe_mul<NW, EXT>(t0, t3, c), c);
+  r.X = fe_sub<NW, EXT>(mul(t3, t1, c), mul(t5, Y3, c), c);
+  r.Y = fe_add<NW, EXT>(mul(t1, Z3, c), mul(Y3, t0, c), c);
+  r.Z = fe_add<NW, EXT>(mul(Z3, t5, c), mul(t0, t3, c), c);
   return r;
 }
 

@@ -26,9 +26,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "ec_add.cu", "ec_madd.cu",
-           "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh")
+SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "ec_add.cu",
+           "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
+HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh", "mont_tc.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -47,6 +47,14 @@ COUNTS = {
     "probe_madd_totals": 0,  # P-tot
     "probe_madd_prefix_packed": 0,  # P-prepk
     "probe_chain_mul": 0,  # P-chain
+    "probe_gmajor_totals": 0,  # P12
+    "probe_gmajor_prefix": 0,  # P13
+    "probe_u32_ops": 0,  # P14
+    "probe_band_mma": 0,  # P15
+    "probe_mul_chain_cios": 0,  # P16
+    "probe_mul_chain_tc": 0,  # P17
+    "probe_gmajor_totals_tc": 0,  # P18
+    "probe_madd_totals_tc": 0,  # P19
 }
 
 _lib = None
@@ -149,10 +157,16 @@ def lib() -> ctypes.CDLL:
         L.zkp_ec_madd.restype = i
         L.zkp_ec_scan.argtypes = [vp, i, i] + [vp] * 6 + [ll, i, vp]
         L.zkp_ec_scan.restype = i
-        L.zkp_probe_madd_scan.argtypes = [vp, i, i, i, i] + [vp] * 9 + [ll, i, vp]
+        L.zkp_probe_madd_scan.argtypes = [vp, vp] + [i] * 6 + [vp] * 9 + [ll, i, vp]
         L.zkp_probe_madd_scan.restype = i
         L.zkp_probe_chain_mul.argtypes = [vp, i, i, vp, vp, ll, i, vp]
         L.zkp_probe_chain_mul.restype = i
+        L.zkp_probe_u32_ops.argtypes = [i, vp, vp, ll, vp]
+        L.zkp_probe_u32_ops.restype = i
+        L.zkp_probe_band_mma.argtypes = [i, vp, vp, vp, i, vp]
+        L.zkp_probe_band_mma.restype = i
+        L.zkp_probe_mul_chain.argtypes = [vp, vp, i, i, vp, vp, vp, ll, vp]
+        L.zkp_probe_mul_chain.restype = i
         _lib = L
     return _lib
 

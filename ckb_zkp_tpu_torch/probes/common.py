@@ -3,11 +3,14 @@ name and power limit, its 32-bit multiply rate, a kernel's bound, timing
 by CUDA events, and random field elements drawn on the device.
 
 A bound is the least time the card could take for a kernel's work: the
-larger of its bytes (each input read once, each output written once; an
-Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s and its 32-bit
-multiply instructions (an 8-word CIOS product is 2 * 8^2 + 8 word
-products, each a low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD
-per SM per clock at the SM's maximum clock.
+largest of its bytes (each input read once, each output written once; an
+Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s, its 32-bit multiply
+instructions (an 8-word CIOS product is 2 * 8^2 + 8 word products, each a
+low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD per SM per clock
+at the SM's maximum clock, and its int8 tensor-core operations over 1,979
+TOPS (the tensor-core Montgomery product: its 2 * 8^2 product IMADs on the
+integer multipliers, and 24 mma.m16n8k32 per warp of 32 elements for the
+reduction, 2 * 16 * 8 * 32 operations each).
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # CUDA Programming Guide, compute capability 9.0
 FQ_BYTES = 64  # 16 int32 limbs
 IMAD_PER_FQ_MUL = 2 * (2 * 8 * 8 + 8)  # CIOS over 8 words, low + high IMAD
+IMAD_PER_TC_MUL = 2 * 8 * 8  # the tensor-core product's a * b, low + high IMAD
+TC_OPS_PER_MUL = 24 * 2 * 16 * 8 * 32 // 32  # its reduction's mma ops per element
+INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor cores
 _RATE: dict = {}
 
 
@@ -62,9 +68,13 @@ def imad_rate() -> dict:
     return _RATE
 
 
-def bound(nbytes: float, imads: float) -> dict:
+def bound(nbytes: float, imads: float, tc_ops: float = 0.0) -> dict:
+    """The bound of a kernel that moves nbytes and issues imads 32-bit
+    integer ops (IMADs, or ops at the same rate) and tc_ops int8
+    tensor-core ops; the two kinds of ops use separate units, so the
+    slower of them bounds the operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / imad_rate()["imad_per_s"] * 1e3
+    t_ops = max(imads / imad_rate()["imad_per_s"], tc_ops / INT8_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 

@@ -55,4 +55,14 @@ def test_probe_kernels_bit_equal_and_launched_by_the_probes(smoke):
     assert set(results) == smoke.PROBE_KERNELS
     assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
     assert all(out["launches"][k] > 0 for k in smoke.PROBE_KERNELS)
-    assert out["window"]["stages_ms"] and out["scan"]["variants"]
+    assert out["window"]["stages_ms"] and out["scan"]["variants"] and out["mxu"]["variants"]
+
+
+def test_tensor_core_kernels_bit_equal_at_edge_shapes(smoke):
+    """fp_mul_tc through P17 and P18/P19, and P12-P16, against their plain
+    versions at partial warps, ragged g-major blocks and all-flagged
+    blocks (the probes' own checks)."""
+    from ckb_zkp_tpu_torch.probes import mxu, scan
+
+    mxu.check("cuda")
+    scan.check("cuda")

@@ -13,8 +13,8 @@ import pytest
 
 import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import convert
-from ckb_zkp_tpu_torch.ops import cuda_build, field, limbs, msm, ntt
-from ckb_zkp_tpu_torch.probes import common, scan, window
+from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
+from ckb_zkp_tpu_torch.probes import common, mxu, scan, window
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
@@ -47,8 +47,10 @@ print("PROVED_WITHOUT_JAX")
 
 _PROBES_WITHOUT_JAX = """
 import os, sys
+import ckb_zkp_tpu_torch.probes.mxu
 import ckb_zkp_tpu_torch.probes.scan
 import ckb_zkp_tpu_torch.probes.window
+import ckb_zkp_tpu_torch.ops.mont_tc
 assert "jax" not in sys.modules, "a probe imported jax"
 jax_dir = os.path.realpath(sys.argv[1]) + os.sep
 loaded = [name for name, mod in list(sys.modules.items())
@@ -124,7 +126,8 @@ def test_source_scan_rejects_the_alias_loader():
     (generator.generate_parameters_from_shape, "device"),
     (common.rand_field, "device"), (window.check, "device"), (window.measure, "device"),
     (window.make_inputs, "device"), (scan.check, "device"), (scan.measure, "device"),
-    (scan.make_inputs, "device"),
+    (scan.make_inputs, "device"), (mxu.check, "device"), (mxu.measure, "device"),
+    (mxu.make_inputs, "device"), (cuda_probe.band_mma_matrix, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
@@ -144,4 +147,7 @@ def test_cuda_sources_and_build_command():
         "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
         "rcb_add", "rcb_madd", "ec_add", "ec_madd", "ec_block_totals_madd",
         "ec_block_totals_add", "scan_prefix_madd_unpacked", "scan_prefix_madd_packed",
-        "probe_madd_totals", "probe_madd_prefix_packed", "probe_chain_mul"}
+        "probe_madd_totals", "probe_madd_prefix_packed", "probe_chain_mul",
+        "probe_gmajor_totals", "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
+        "probe_mul_chain_cios", "probe_mul_chain_tc", "probe_gmajor_totals_tc",
+        "probe_madd_totals_tc"}

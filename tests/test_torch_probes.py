@@ -1,7 +1,8 @@
 """K2a and K2b (plain versions) against the reference's `_scan_prefix_madd`
-fallback, the scan probes' plain kernels against K2b and host ints, and
-the window probe's full window against the prover's `_windows`, on the
-CPU. Eager JAX only; projective coordinates are compared bit for bit."""
+fallback, the scan probes' plain kernels (column-major and g-major, CIOS
+and tensor-core) against K2b and host ints, and the window probe's full
+window against the prover's `_windows`, on the CPU. Eager JAX only;
+projective coordinates are compared bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,7 @@ from ckb_zkp_tpu_torch.ops import cuda_probe, cuda_rcb
 from ckb_zkp_tpu_torch.ops.limbs import (ints_to_limbs, limbs_to_ints, pack_limbs, to_numpy,
                                         to_torch)
 from ckb_zkp_tpu_torch.ops.msm import _scan_prefix_madd, device_group
-from ckb_zkp_tpu_torch.probes import scan, window
+from ckb_zkp_tpu_torch.probes import mxu, scan, window
 
 torch.set_num_threads(1)
 CURVE = get_curve("bn254")
@@ -101,6 +102,35 @@ def test_probe_prefix_packed_plain_unpacks_to_k2b_w():
     assert all(torch.equal(a, b) for a, b in zip(Tp, T))
 
 
+def test_gmajor_index_is_the_block_run_order():
+    """g-major: each block of `cols` columns (a ragged last one too) holds
+    its leaves as one step-major run; column-major element g*B + b goes
+    there."""
+    idx = cuda_probe.gmajor_index(5, 3, 2)
+    assert idx.tolist() == [0, 2, 4, 1, 3, 5, 6, 8, 10, 7, 9, 11, 12, 13, 14]
+    x = torch.arange(67 * 32)
+    assert torch.equal(cuda_probe.from_gmajor(cuda_probe.to_gmajor(x, 32, 64), 32, 64), x)
+
+
+@pytest.mark.parametrize("n,threads", [(96, 32), (67 * 32, 32)])
+def test_gmajor_and_tensor_core_plain_equal_k2b(n, threads):
+    """P12 and P18 (g-major totals), P13 (g-major W, X|Y|Z per leaf) and P19
+    (tensor-core P-tot) on g-major-permuted inputs give K2b's T and W; at
+    G = 67 and 32 columns per block the last block is ragged."""
+    rg, leaves, (W, T) = _g1_case(n)
+    g = scan.gmajor_leaves(*leaves, threads)
+    for red in cuda_probe.REDS:
+        got = cuda_probe.gmajor_totals(rg, *g, 32, threads, red)
+        assert all(torch.equal(a, b) for a, b in zip(got, T)), red
+    Wg, Tg = cuda_probe.gmajor_prefix(rg, *g, 32, threads)
+    assert Wg.shape == (n, 24) and all(torch.equal(a, b) for a, b in zip(Tg, T))
+    Wp = cuda_probe.from_gmajor(Wg, 32, threads)
+    assert all(torch.equal(cuda_rcb.unpack_coord(rg, Wp[:, 8 * k: 8 * k + 8]), W[k])
+               for k in range(3))
+    got = cuda_probe.madd_totals(rg, *leaves, 32, 1, threads, "tc")
+    assert all(torch.equal(a, b) for a, b in zip(got, T))
+
+
 def test_probe_chain_mul_plain_matches_host_fold():
     df = device_group(CURVE, "g1", "cpu").fq
     p, B, G = df.spec.modulus, 8, 5
@@ -152,10 +182,30 @@ def test_probe_kernels_refuse_what_they_do_not_take():
         cuda_rcb.scan_prefix_madd_packed(rg1, w, w, f, 32)
     with pytest.raises(ValueError, match="multiple"):
         cuda_probe.chain_mul(rg1.df, torch.empty((65, 16), dtype=torch.int32), 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_probe.gmajor_totals(rg1, w, w, f, 32, 64, "tc")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_probe.gmajor_prefix(rg1, w, w, f, 32)
+    with pytest.raises(ValueError, match="red"):
+        cuda_probe.madd_totals(rg1, w, w, f, 32, 1, 64, "mxu")
+    with pytest.raises(ValueError, match="k = 1"):
+        cuda_probe.madd_totals(rg1, w, w, f, 32, 2, 64, "tc")
+    r = torch.empty((64, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_probe.mul_chain(rg1.df, r, r, 4, "tc")
+    with pytest.raises(ValueError, match="nmul"):
+        cuda_probe.mul_chain(rg1.df, r, r, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_probe.u32_ops(torch.empty((2, 8, 128), dtype=torch.int32, device="meta"), "mul")
+    x8 = torch.empty((32, 16, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_probe.band_mma(cuda_probe.band_mma_matrix("meta"), x8, 8)
+    with pytest.raises(ValueError, match="n_mm"):
+        cuda_probe.band_mma(cuda_probe.band_mma_matrix("meta"), x8, 4)
 
 
-@pytest.mark.parametrize("probe", [window, scan])
+@pytest.mark.parametrize("probe", [window, scan, mxu])
 def test_probes_exit_nonzero_without_a_card(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert probe.main(["--log2", "10"]) == 2
+    assert probe.main([] if probe is mxu else ["--log2", "10"]) == 2
     assert "CUDA card" in capsys.readouterr().err
