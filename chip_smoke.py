@@ -35,8 +35,14 @@ P-prepk (P12, P13) and P-tot on the tensor-core Montgomery reduction
 2^(log2 + 1), P18 and P19 also against P-tot's kernel; the mxu probe's
 kernels (P14 u32 op chains, P15 int8 band matmuls, P16 and P17 multiply
 chains, CIOS and tensor-core, P17 also against P16) at edge shapes and at
-their full sizes; then the window, scan and mxu probes, which must launch
-all thirteen.
+their full sizes; the grid probe's P7 and P8 (P-tot and P-prepk with the
+leaves staged through shared memory, 64 and 256 threads), P11 (P8 with a
+W tile flushed once, 32 and 64 columns), P9 and P10 (W written with no
+arithmetic, per step or per tile) and the dma probe's P20-P22 (a ^ b
+under three blockings) at edge shapes and at 2^(log2 + 1), P7 also
+against P-tot's kernel and P8 and P11 against P-prepk's; then the window,
+scan, mxu, grid and dma probes, which must launch all twenty-one of the
+phase's kernels (31 kernels in the table in all).
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
@@ -47,10 +53,11 @@ per SM per clock at the SM's maximum clock, counting the multiplies this
 run's data needs (a flagged leaf or an add to infinity needs none), and
 int8 tensor-core operations over 1,979 TOPS (P15; the tensor-core
 multiply's reduction, whose product counts 2 * 8^2 IMADs); P14's steps
-at one op each, at the same 64 per SM per clock. No single PyTorch call computes any of
-these functions, so `library_ms` is null, except for P15: one
-`torch._int_mm` of its matmul step over the whole batch, a yardstick the
-port never calls.
+at one op each, at the same 64 per SM per clock. No single PyTorch call computes most of
+these functions, so `library_ms` is null, except for P15 (one
+`torch._int_mm` of its matmul step over the whole batch), P9 and P10 (two
+`copy_` and one `torch.bitwise_xor`, timed together) and P20-P22 (one
+`torch.bitwise_xor(a, b, out=o)`): yardsticks the port never calls.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table. Without a
@@ -101,6 +108,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "probe_mul_chain_tc": ("probe_mxu.cu", "scripts/probe_mxu2.py:110"),
     "probe_gmajor_totals_tc": ("probe_scan.cu", "scripts/probe_scan6.py:160"),
     "probe_madd_totals_tc": ("probe_scan.cu", "scripts/probe_scan7.py:177"),
+    "probe_grid_totals": ("probe_grid.cu", "scripts/probe_scan3.py:132"),
+    "probe_grid_prefix": ("probe_grid.cu", "scripts/probe_scan3.py:199"),
+    "probe_wo_steps": ("probe_grid.cu", "scripts/probe_scan4.py:100"),
+    "probe_wo_tile": ("probe_grid.cu", "scripts/probe_scan4.py:128"),
+    "probe_grid_prefix_tile": ("probe_grid.cu", "scripts/probe_scan4.py:195"),
+    "probe_xor_flat": ("probe_dma.cu", "scripts/probe_dma.py:60"),
+    "probe_xor_lead1": ("probe_dma.cu", "scripts/probe_dma.py:74"),
+    "probe_xor_grid2d": ("probe_dma.cu", "scripts/probe_dma.py:88"),
 }
 # the run whose launches each kernel's row reports
 SETUP_KERNELS = {"rcb_madd"}  # the RCB setup
@@ -110,7 +125,9 @@ PROBE_KERNELS = {"scan_prefix_madd_unpacked", "scan_prefix_madd_packed", "probe_
                  "probe_madd_prefix_packed", "probe_chain_mul", "probe_gmajor_totals",
                  "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
                  "probe_mul_chain_cios", "probe_mul_chain_tc", "probe_gmajor_totals_tc",
-                 "probe_madd_totals_tc"}  # the probes' runs
+                 "probe_madd_totals_tc", "probe_grid_totals", "probe_grid_prefix",
+                 "probe_wo_steps", "probe_wo_tile", "probe_grid_prefix_tile", "probe_xor_flat",
+                 "probe_xor_lead1", "probe_xor_grid2d"}  # the probes' runs
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -713,11 +730,11 @@ def phase_probes(results: dict, log2: int) -> dict:
     scan probes' kernels P-tot, P-prepk, P-chain (G1, every K and block
     size), P12, P13, P18 and P19 (every block size) against their plain
     versions at edge shapes (flagged leaves and an all-flagged block, 67
-    columns, B = 5 tail blocks, one block of B = n = 7), and the mxu
-    probe's P14-P17; then each kernel against its plain version at the
-    probes' N = 2^log2 (P14-P17 at the mxu probe's sizes), beside its
-    bound; then the window, scan and mxu probes, with the launch counts of
-    that run."""
+    columns, B = 5 tail blocks, one block of B = n = 7), the mxu probe's
+    P14-P17, the grid probe's P7-P11 and the dma probe's P20-P22; then
+    each kernel against its plain version at the probes' N = 2^log2
+    (P14-P17 at the mxu probe's sizes), beside its bound; then the window,
+    scan, mxu, grid and dma probes, with the launch counts of that run."""
     import numpy as np
     import torch
 
@@ -725,15 +742,17 @@ def phase_probes(results: dict, log2: int) -> dict:
     from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, cuda_rcb
     from ckb_zkp_tpu_torch.ops.limbs import pack_limbs
     from ckb_zkp_tpu_torch.ops.msm import _RCB_B, device_group
-    from ckb_zkp_tpu_torch.probes import mxu, scan, window
+    from ckb_zkp_tpu_torch.probes import dma, grid, mxu, scan, window
 
     window.check(DEVICE)
     scan.check(DEVICE)
     mxu.check(DEVICE)
+    grid.check(DEVICE)
+    dma.check(DEVICE)
     log("probes: K2a, K2b (G1, G2), P-tot, P-prepk, P-chain (every K and block "
         "size), P12, P13, P18, P19 (every block size), P14 (every op), P15 "
-        "(n_mm 1, 8, 32) and P16, P17 (nmul 1, 4) equal to their plain versions "
-        "at the edge shapes")
+        "(n_mm 1, 8, 32), P16, P17 (nmul 1, 4), P7-P11 and P20-P22 (every "
+        "option) equal to their plain versions at the edge shapes")
     rng = np.random.default_rng(SEED + 7)
     curve = get_curve("bn254")
     record = Recorder(results)
@@ -764,6 +783,7 @@ def phase_probes(results: dict, log2: int) -> dict:
     dg = device_group(curve, "g1", DEVICE)
     xw, yw, inf, x = scan.make_inputs(dg, log2, scan.SEED + 1, DEVICE)
     live = N - int(inf.sum())
+    plains = {}
     for name, kern, args, kind in (
             ("probe_madd_totals", cuda_probe.madd_totals, (dg.rg, xw, yw, inf, B), "tot"),
             ("probe_madd_prefix_packed", cuda_probe.madd_prefix_packed,
@@ -771,6 +791,7 @@ def phase_probes(results: dict, log2: int) -> dict:
             ("probe_chain_mul", cuda_probe.chain_mul, (dg.fq, x, B), "chain")):
         plain = getattr(cuda_probe, kern.__name__ + "_plain")
         pl, plain_ms = timed_once(lambda: plain(*args))
+        plains[kind] = (pl, plain_ms)
         if kind == "prepk":
             pl = pl[0] + pl[1]
         err = 0
@@ -782,20 +803,115 @@ def phase_probes(results: dict, log2: int) -> dict:
                f"g1 N={N} B={B}, every K and block size; probe path (ms at K = 1, "
                f"64 threads)", scan.work(kind, N, live))
         del pl, out
+    grid_probes(record, dg, xw, yw, inf, B, plains)
+    del plains
     tensor_core_probes(record, dg, xw, yw, inf, B)
     del xw, yw, inf, x
     torch.cuda.empty_cache()
+    dma_probes(record, N)
 
     cuda_build.reset_counts()
     win = window.measure(log2, 16, 5, DEVICE)
     sc = scan.measure(log2, 10, DEVICE)
     mx = mxu.measure(10, DEVICE)
+    gr = grid.measure(log2, 10, DEVICE)
+    dm = dma.measure(log2, 20, DEVICE)
     launches = dict(cuda_build.COUNTS)
     log(f"kernel launches in the probes: {json.dumps(launches)}")
     missing = [k for k in sorted(PROBE_KERNELS) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the probes: {missing}")
-    return {"launches": launches, "window": win, "scan": sc, "mxu": mx}
+    return {"launches": launches, "window": win, "scan": sc, "mxu": mx, "grid": gr, "dma": dm}
+
+
+def grid_probes(record, dg, xw, yw, inf, B: int, plains: dict) -> None:
+    """P7, P8 (64 and 256 threads) and P11 (32 and 64 columns) on the scan
+    probe's leaves against the plain P-tot and P-prepk of the rows above
+    (the same functions on the same tensors, so their plain results and
+    times are reused), and bit for bit against P-tot's and P-prepk's
+    kernels (K = 1, 64 threads); P9 (64 threads) and P10 (32 and 64
+    columns) against their plain version, beside the library's two
+    `copy_` and one `torch.bitwise_xor`. The table's ms are at 64 threads
+    and 32 columns."""
+    from ckb_zkp_tpu_torch.ops import cuda_probe as cp
+    from ckb_zkp_tpu_torch.probes import grid
+
+    rg, N = dg.rg, xw.shape[0]
+    live = N - int(inf.sum())
+    (want_t, plain_t), ((want_w, want_tw), plain_w) = plains["tot"], plains["prepk"]
+    k_t = cp.madd_totals(rg, xw, yw, inf, B, 1, 64)
+    k_w, k_tw = cp.madd_prefix_packed(rg, xw, yw, inf, B, 1, 64)
+    errs = {n: 0 for n in ("probe_grid_totals", "probe_grid_prefix", "probe_grid_prefix_tile")}
+    runs = [("probe_grid_totals", t, lambda t=t: cp.grid_totals(rg, xw, yw, inf, B, t))
+            for t in cp.GRID_THREADS]
+    runs += [("probe_grid_prefix", t, lambda t=t: cp.grid_prefix(rg, xw, yw, inf, B, t))
+             for t in cp.GRID_THREADS]
+    runs += [("probe_grid_prefix_tile", c, lambda c=c: cp.grid_prefix_tile(rg, xw, yw, inf, B, c))
+             for c in cp.TILE_COLS]
+    for name, opt, fn in runs:
+        out = fn()
+        got, want, kern = ((out, want_t, k_t) if name == "probe_grid_totals"
+                           else (out[0] + out[1], want_w + want_tw, k_w + k_tw))
+        errs[name] = max(errs[name], max_abs_err(got, want))
+        if max_abs_err(got, kern):
+            raise AssertionError(f"{name} != P-tot's / P-prepk's kernel (option {opt})")
+        del out, got
+    log(f"probes: P7's T equals P-tot's kernel, P8's and P11's W and T P-prepk's, limb "
+        f"for limb at N={N}, every option")
+    what = f"g1 N={N} B={B}, threads 64, 256 / cols 32, 64; probe path (ms at 64 / 32)"
+    for name, kind, plain_ms, fn in (
+            ("probe_grid_totals", "tot", plain_t, lambda: cp.grid_totals(rg, xw, yw, inf, B)),
+            ("probe_grid_prefix", "prepk", plain_w, lambda: cp.grid_prefix(rg, xw, yw, inf, B)),
+            ("probe_grid_prefix_tile", "prepk", plain_w,
+             lambda: cp.grid_prefix_tile(rg, xw, yw, inf, B))):
+        record(name, errs[name], cuda_ms(fn, 3), plain_ms, what, grid.work(kind, N, live))
+    del k_t, k_w, k_tw, want_t, want_w, want_tw
+    want, plain_ms = timed_once(lambda: cp.wo_plain(xw, yw))
+    lib_ms = cuda_ms(grid.library_wo(xw, yw), 10)
+    log(f"library: two copy_ and one torch.bitwise_xor (W of P9/P10) at N={N}: "
+        f"{lib_ms:.6f} ms")
+    record("probe_wo_steps", max_abs_err(cp.wo_steps(xw, yw, B), want),
+           cuda_ms(lambda: cp.wo_steps(xw, yw, B), 10), plain_ms,
+           f"g1 N={N} B={B}, 64 threads; probe path; library: two copy_ and one "
+           f"torch.bitwise_xor", grid.work("wo", N, live), lib_ms)
+    err = max(max_abs_err(cp.wo_tile(xw, yw, B, c), want) for c in cp.TILE_COLS)
+    record("probe_wo_tile", err, cuda_ms(lambda: cp.wo_tile(xw, yw, B), 10), plain_ms,
+           f"g1 N={N} B={B}, cols 32, 64; probe path (ms at 32); library: two copy_ and "
+           f"one torch.bitwise_xor", grid.work("wo", N, live), lib_ms)
+    del want
+
+
+def dma_probes(record, N: int) -> None:
+    """P20 (sb 8, 32), P21 and P22 on the dma probe's arrays of N elements
+    of 8 words (at least 256 rows of 128), against their plain version, beside one
+    `torch.bitwise_xor(a, b, out=o)` on the same arrays. The table's P20 ms
+    is at sb 8."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_probe as cp
+    from ckb_zkp_tpu_torch.probes import dma
+
+    (a3, b3), (a4, b4) = dma.make_inputs(dma.rows(N), dma.SEED + 1, DEVICE)
+    N = a3.shape[1] * dma.LANES
+    want3, plain3 = timed_once(lambda: cp.xor_plain(a3, b3))
+    want4, plain4 = timed_once(lambda: cp.xor_plain(a4, b4))
+    lib3 = cuda_ms(dma.library_xor(a3, b3), 20)
+    lib4 = cuda_ms(dma.library_xor(a4, b4), 20)
+    log(f"library: torch.bitwise_xor(out=) at {N} x 8 words: {lib3:.6f} ms (Rp, M, 128), "
+        f"{lib4:.6f} ms (B, Rp, M/B, 128)")
+    what = f"{N} elements x 8 words"
+    err = max(max_abs_err(cp.xor_flat(a3, b3, sb), want3) for sb in cp.XOR_SB["flat"])
+    record("probe_xor_flat", err, cuda_ms(lambda: cp.xor_flat(a3, b3, 8), 20), plain3,
+           f"{what} (Rp, M, 128), sb 8, 32; probe path (ms at sb 8); library: "
+           f"torch.bitwise_xor(out=)", dma.work(a3), lib3)
+    record("probe_xor_lead1", max_abs_err(cp.xor_lead1(a4, b4, 8), want4),
+           cuda_ms(lambda: cp.xor_lead1(a4, b4, 8), 20), plain4,
+           f"{what} (B={dma.B}, Rp, M/B, 128), sb 8; probe path", dma.work(a4), lib4)
+    record("probe_xor_grid2d", max_abs_err(cp.xor_grid2d(a3, b3, 8, dma.B), want3),
+           cuda_ms(lambda: cp.xor_grid2d(a3, b3, 8, dma.B), 20), plain3,
+           f"{what} (Rp, M, 128), sb 8, B={dma.B}; probe path", dma.work(a3), lib3)
+    del a3, b3, a4, b4, want3, want4
+    torch.cuda.empty_cache()
 
 
 def tensor_core_probes(record, dg, xw, yw, inf, B: int) -> None:

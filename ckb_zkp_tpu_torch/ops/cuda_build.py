@@ -26,9 +26,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "ec_add.cu",
-           "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh", "mont_tc.cuh")
+SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu",
+           "probe_dma.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
+HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -55,6 +55,14 @@ COUNTS = {
     "probe_mul_chain_tc": 0,  # P17
     "probe_gmajor_totals_tc": 0,  # P18
     "probe_madd_totals_tc": 0,  # P19
+    "probe_grid_totals": 0,  # P7
+    "probe_grid_prefix": 0,  # P8
+    "probe_wo_steps": 0,  # P9
+    "probe_wo_tile": 0,  # P10
+    "probe_grid_prefix_tile": 0,  # P11
+    "probe_xor_flat": 0,  # P20
+    "probe_xor_lead1": 0,  # P21
+    "probe_xor_grid2d": 0,  # P22
 }
 
 _lib = None
@@ -167,6 +175,12 @@ def lib() -> ctypes.CDLL:
         L.zkp_probe_band_mma.restype = i
         L.zkp_probe_mul_chain.argtypes = [vp, vp, i, i, vp, vp, vp, ll, vp]
         L.zkp_probe_mul_chain.restype = i
+        L.zkp_probe_grid_scan.argtypes = [vp] + [i] * 3 + [vp] * 9 + [ll, i, vp]
+        L.zkp_probe_grid_scan.restype = i
+        L.zkp_probe_wo.argtypes = [i, i] + [vp] * 5 + [ll, i, vp]
+        L.zkp_probe_wo.restype = i
+        L.zkp_probe_xor.argtypes = [i, i, i, vp, vp, vp, i, ll, vp]
+        L.zkp_probe_xor.restype = i
         _lib = L
     return _lib
 

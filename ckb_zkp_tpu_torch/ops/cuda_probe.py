@@ -1,8 +1,8 @@
 """The probes' kernels: wrappers, plain versions and launch counters.
 
 They replace the Pallas probe kernels of `scripts/probe_scan*.py`,
-`probe_mxu.py` and `probe_mxu2.py` (`csrc/probe_scan.cu`,
-`csrc/probe_mxu.cu`):
+`probe_mxu.py`, `probe_mxu2.py` and `probe_dma.py` (`csrc/probe_scan.cu`,
+`csrc/probe_mxu.cu`, `csrc/probe_grid.cu`, `csrc/probe_dma.cu`):
 
 - P-tot (`madd_totals`): K2b's block totals only, the blocked mixed-add
   scan over packed affine leaves with a bool flag array, without W; with
@@ -20,6 +20,14 @@ They replace the Pallas probe kernels of `scripts/probe_scan*.py`,
 - P15 (`band_mma`): chained int8 band-matrix products per 256-row tile.
 - P16 / P17 (`mul_chain`): nmul chained Montgomery products a = a * b *
   R^-1, CIOS (P16) or the tensor-core reduction (P17).
+- P7, P8 (`grid_totals`, `grid_prefix`): P-tot's and P-prepk's functions
+  with each step's leaves staged through shared memory by cp.async and the
+  accumulator in shared memory; P11 (`grid_prefix_tile`): P8 with the
+  tile's whole W held in shared memory and written once per tile.
+- P9, P10 (`wo_steps`, `wo_tile`): write only, W = (x, y, x ^ y) per
+  leaf, per step or flushed once per tile.
+- P20, P21, P22 (`xor_flat`, `xor_lead1`, `xor_grid2d`): o = a ^ b over
+  int32 words under three blockings of the same bytes.
 
 `k` (1, 2 or 4) is the number of block-columns each thread interleaves,
 `threads` (32, 64, 128 or 256) the threads per block: both change how the
@@ -338,3 +346,169 @@ def mul_chain_plain(df, a, b, nmul: int, red: str = "cios"):
     for _ in range(nmul):
         a = mul(df, a, b)
     return a
+
+
+GRID_THREADS = (64, 256)  # P7, P8 (the sites' sb 8, 32)
+TILE_COLS = (32, 64)  # P10, P11: columns per tile
+WO_THREADS = (64,)  # P9
+SMEM_MAX = 232448  # shared memory a block can use
+
+
+def _grid_launch(rg, xw, yw, inf, B: int, wmode: int, cols: int):
+    """Launch P7 (wmode 0), P8 (1) or P11 (2) -> (W x3 or Nones, T x3)."""
+    if rg.cf.ext != 1:
+        raise ValueError("probe kernels are instantiated for G1 (Fq) only")
+    allowed = TILE_COLS if wmode == 2 else GRID_THREADS
+    if cols not in allowed:
+        raise ValueError(f"probe: {'cols' if wmode == 2 else 'threads'} = {cols} "
+                         f"not in {allowed}")
+    M = xw.shape[0]
+    _check_blocks(M, B)
+    smem = 4 * 8 * cols * (7 + (3 * B if wmode == 2 else 0))
+    if smem > SMEM_MAX:
+        raise ValueError(f"probe: {smem} B of shared memory for cols = {cols}, "
+                         f"B = {B} (at most {SMEM_MAX})")
+    xw, yw, inf = xw.contiguous(), yw.contiguous(), inf.contiguous()
+    cuda_build.check_tensor(xw, "probe x", (M, 8))
+    cuda_build.check_tensor(yw, "probe y", xw.shape)
+    cuda_build.check_tensor(inf, "probe flags", (M,), torch.bool)
+    W = tuple(torch.empty_like(xw) for _ in range(3)) if wmode else (None,) * 3
+    T = tuple(torch.empty((M // B, rg.cf.L), dtype=torch.int32, device=xw.device)
+              for _ in range(3))
+    ptr = [None if t is None else t.data_ptr() for t in (*W, *T)]
+    rc = cuda_build.lib().zkp_probe_grid_scan(
+        rg.kconsts.ctypes.data, rg.cf.ext, wmode, cols, *ptr, xw.data_ptr(),
+        yw.data_ptr(), inf.data_ptr(), M // B, B, cuda_build.stream_ptr(xw))
+    name = ("probe_grid_totals", "probe_grid_prefix", "probe_grid_prefix_tile")[wmode]
+    cuda_build.COUNTS[name] += 1
+    cuda_build.check(rc, name)
+    return W, T
+
+
+def grid_totals(rg, xw, yw, inf, B: int, threads: int = 64):
+    """P7: P-tot's T (G,) with the leaves staged through shared memory and
+    the accumulator in shared memory, one thread per column."""
+    if xw.device.type == "cpu":
+        return grid_totals_plain(rg, xw, yw, inf, B)
+    return _grid_launch(rg, xw, yw, inf, B, 0, threads)[1]
+
+
+def grid_prefix(rg, xw, yw, inf, B: int, threads: int = 64):
+    """P8: P7 that also writes every prefix -> (W (M, R/2) packed x3, T)."""
+    if xw.device.type == "cpu":
+        return grid_prefix_plain(rg, xw, yw, inf, B)
+    return _grid_launch(rg, xw, yw, inf, B, 1, threads)
+
+
+def grid_prefix_tile(rg, xw, yw, inf, B: int, cols: int = 32):
+    """P11: P8 with the tile's W (cols * B leaves) held in shared memory
+    and written once per tile -> (W x3, T)."""
+    if xw.device.type == "cpu":
+        return grid_prefix_tile_plain(rg, xw, yw, inf, B)
+    return _grid_launch(rg, xw, yw, inf, B, 2, cols)
+
+
+def _wo_launch(xw, yw, B: int, staged: int, cols: int):
+    allowed = TILE_COLS if staged else WO_THREADS
+    if cols not in allowed:
+        raise ValueError(f"probe: {'cols' if staged else 'threads'} = {cols} "
+                         f"not in {allowed}")
+    M = xw.shape[0]
+    _check_blocks(M, B)
+    if staged and 3 * cols * B * 32 > SMEM_MAX:
+        raise ValueError(f"probe: a W tile of {cols} columns x B = {B} exceeds "
+                         f"{SMEM_MAX} B of shared memory")
+    xw, yw = xw.contiguous(), yw.contiguous()
+    cuda_build.check_tensor(xw, "probe x", (M, 8))
+    cuda_build.check_tensor(yw, "probe y", xw.shape)
+    W = tuple(torch.empty_like(xw) for _ in range(3))
+    rc = cuda_build.lib().zkp_probe_wo(
+        staged, cols, *(w.data_ptr() for w in W), xw.data_ptr(), yw.data_ptr(),
+        M // B, B, cuda_build.stream_ptr(xw))
+    name = "probe_wo_tile" if staged else "probe_wo_steps"
+    cuda_build.COUNTS[name] += 1
+    cuda_build.check(rc, name)
+    return W
+
+
+def wo_steps(xw, yw, B: int, threads: int = 64):
+    """P9: (M, 8) words xw, yw -> W = (xw, yw, xw ^ yw), written step by
+    step, one thread per column of B leaves."""
+    if xw.device.type == "cpu":
+        return wo_plain(xw, yw)
+    return _wo_launch(xw, yw, B, 0, threads)
+
+
+def wo_tile(xw, yw, B: int, cols: int = 32):
+    """P10: P9 with the tile's three outputs staged in shared memory and
+    flushed once per tile of `cols` columns."""
+    if xw.device.type == "cpu":
+        return wo_plain(xw, yw)
+    return _wo_launch(xw, yw, B, 1, cols)
+
+
+XOR_SB = {"flat": (8, 32), "lead1": (8,), "grid2d": (8,)}  # P20, P21, P22
+
+
+def _xor_launch(kind: str, a, b, sb: int, B: int):
+    if sb not in XOR_SB[kind]:
+        raise ValueError(f"probe: sb = {sb} not in {XOR_SB[kind]} for {kind}")
+    lead = kind == "lead1"
+    if a.dim() != (4 if lead else 3) or a.shape[-1] != 128:
+        want = "(B, Rp, M/B, 128)" if lead else "(Rp, M, 128)"
+        raise ValueError(f"probe: xor_{kind} takes {want} words, got {tuple(a.shape)}")
+    if lead:
+        B = a.shape[0]
+    planes, rows = a.shape[-3], a.shape[-2]
+    step = sb * B if kind == "grid2d" else sb
+    if rows % step:
+        raise ValueError(f"probe: {rows} rows are not a multiple of {step}")
+    a, b = a.contiguous(), b.contiguous()
+    cuda_build.check_tensor(a, "probe xor a")
+    cuda_build.check_tensor(b, "probe xor b", a.shape)
+    o = torch.empty_like(a)
+    rc = cuda_build.lib().zkp_probe_xor(
+        ("flat", "lead1", "grid2d").index(kind), sb, B, o.data_ptr(), a.data_ptr(),
+        b.data_ptr(), planes, rows, cuda_build.stream_ptr(a))
+    name = f"probe_xor_{kind}"
+    cuda_build.COUNTS[name] += 1
+    cuda_build.check(rc, name)
+    return o
+
+
+def xor_flat(a, b, sb: int = 8):
+    """P20: a ^ b over (Rp, M, 128) int32 words, one block per (Rp, sb, 128)
+    tile, 1-D grid."""
+    if a.device.type == "cpu":
+        return xor_plain(a, b)
+    return _xor_launch("flat", a, b, sb, 1)
+
+
+def xor_lead1(a, b, sb: int = 8):
+    """P21: a ^ b over (B, Rp, M/B, 128), one block per (1, Rp, sb, 128)
+    tile, as the scans read."""
+    if a.device.type == "cpu":
+        return xor_plain(a, b)
+    return _xor_launch("lead1", a, b, sb, 1)
+
+
+def xor_grid2d(a, b, sb: int = 8, B: int = 32):
+    """P22: P20's function, its tiles walked by a (M / sb / B, B) grid."""
+    if a.device.type == "cpu":
+        return xor_plain(a, b)
+    return _xor_launch("grid2d", a, b, sb, B)
+
+
+# P7 computes P-tot's function, P8 and P11 P-prepk's
+grid_totals_plain = madd_totals_plain
+grid_prefix_plain = grid_prefix_tile_plain = madd_prefix_packed_plain
+
+
+def wo_plain(xw, yw):
+    """Plain P9/P10: (xw, yw, xw ^ yw), new tensors."""
+    return xw.clone(), yw.clone(), torch.bitwise_xor(xw, yw)
+
+
+def xor_plain(a, b):
+    """Plain P20-P22."""
+    return torch.bitwise_xor(a, b)

@@ -39,6 +39,18 @@ class Stages:
         self.t = now
 
 
+def _fit_h(h_can, rows: int):
+    """The h scalars cut to `rows`, the keys' h_query width. Padded keys
+    from the reference's `parameters_from_bytes` hold m rows of h_query,
+    not num_cols_pad; the witness map's rows from m - 1 on are zero, so
+    the cut drops nothing, and a nonzero row cut raises ValueError."""
+    if h_can.shape[0] <= rows:
+        return h_can
+    if bool(h_can[rows:].any()):
+        raise ValueError(f"h: a nonzero scalar past the keys' {rows} h_query rows")
+    return h_can[:rows]
+
+
 def create_proof_from_shape(params, shape, r: int, s: int,
                             timings: dict | None = None):
     """Proof for `shape`'s assignment under `params`, with randomness r, s.
@@ -69,8 +81,7 @@ def create_proof_from_shape(params, shape, r: int, s: int,
 
     hpad = max(qap.num_cols_pad, qap.m) if padded else qap.m
     h_can = qap.witness_map(z_can, out_len=hpad)
-    if not padded:
-        h_can = h_can[: qap.m - 1]
+    h_can = _fit_h(h_can, params.h_query[0].shape[0] if padded else qap.m - 1)
     st.mark("witness_map")
 
     ga_acc = dg1.msm(params.a_query, z_can)

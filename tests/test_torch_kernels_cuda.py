@@ -56,6 +56,7 @@ def test_probe_kernels_bit_equal_and_launched_by_the_probes(smoke):
     assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
     assert all(out["launches"][k] > 0 for k in smoke.PROBE_KERNELS)
     assert out["window"]["stages_ms"] and out["scan"]["variants"] and out["mxu"]["variants"]
+    assert out["grid"]["variants"] and out["dma"]["variants"]
 
 
 def test_tensor_core_kernels_bit_equal_at_edge_shapes(smoke):
@@ -66,3 +67,13 @@ def test_tensor_core_kernels_bit_equal_at_edge_shapes(smoke):
 
     mxu.check("cuda")
     scan.check("cuda")
+
+
+def test_grid_and_dma_kernels_bit_equal_at_edge_shapes(smoke):
+    """P7-P11 against their plain versions and P-tot's and P-prepk's
+    kernels at ragged tiles, partial blocks and all-flagged blocks, and
+    P20-P22 against theirs at small shapes (the probes' own checks)."""
+    from ckb_zkp_tpu_torch.probes import dma, grid
+
+    grid.check("cuda")
+    dma.check("cuda")

@@ -14,7 +14,7 @@ import pytest
 import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import convert
 from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
-from ckb_zkp_tpu_torch.probes import common, mxu, scan, window
+from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
@@ -50,6 +50,8 @@ import os, sys
 import ckb_zkp_tpu_torch.probes.mxu
 import ckb_zkp_tpu_torch.probes.scan
 import ckb_zkp_tpu_torch.probes.window
+import ckb_zkp_tpu_torch.probes.grid
+import ckb_zkp_tpu_torch.probes.dma
 import ckb_zkp_tpu_torch.ops.mont_tc
 assert "jax" not in sys.modules, "a probe imported jax"
 jax_dir = os.path.realpath(sys.argv[1]) + os.sep
@@ -128,6 +130,8 @@ def test_source_scan_rejects_the_alias_loader():
     (window.make_inputs, "device"), (scan.check, "device"), (scan.measure, "device"),
     (scan.make_inputs, "device"), (mxu.check, "device"), (mxu.measure, "device"),
     (mxu.make_inputs, "device"), (cuda_probe.band_mma_matrix, "device"),
+    (grid.check, "device"), (grid.measure, "device"), (dma.check, "device"),
+    (dma.measure, "device"), (dma.make_inputs, "device"), (dma.rand_words, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
@@ -150,4 +154,6 @@ def test_cuda_sources_and_build_command():
         "probe_madd_totals", "probe_madd_prefix_packed", "probe_chain_mul",
         "probe_gmajor_totals", "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
         "probe_mul_chain_cios", "probe_mul_chain_tc", "probe_gmajor_totals_tc",
-        "probe_madd_totals_tc"}
+        "probe_madd_totals_tc", "probe_grid_totals", "probe_grid_prefix", "probe_wo_steps",
+        "probe_wo_tile", "probe_grid_prefix_tile", "probe_xor_flat", "probe_xor_lead1",
+        "probe_xor_grid2d"}

@@ -18,7 +18,7 @@ from ckb_zkp_tpu_torch.ops import cuda_probe, cuda_rcb
 from ckb_zkp_tpu_torch.ops.limbs import (ints_to_limbs, limbs_to_ints, pack_limbs, to_numpy,
                                         to_torch)
 from ckb_zkp_tpu_torch.ops.msm import _scan_prefix_madd, device_group
-from ckb_zkp_tpu_torch.probes import mxu, scan, window
+from ckb_zkp_tpu_torch.probes import dma, grid, mxu, scan, window
 
 torch.set_num_threads(1)
 CURVE = get_curve("bn254")
@@ -204,7 +204,7 @@ def test_probe_kernels_refuse_what_they_do_not_take():
         cuda_probe.band_mma(cuda_probe.band_mma_matrix("meta"), x8, 4)
 
 
-@pytest.mark.parametrize("probe", [window, scan, mxu])
+@pytest.mark.parametrize("probe", [window, scan, mxu, grid, dma])
 def test_probes_exit_nonzero_without_a_card(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert probe.main([] if probe is mxu else ["--log2", "10"]) == 2
