@@ -10,7 +10,10 @@ process per source, in parallel; (3) every kernel of the setup's and the
 prover's paths (K1-K6) against its plain PyTorch version on the same CUDA
 tensors, bit-exact, with both times: at small shapes with edge values, then
 at the shapes the slice gives each kernel (K6: the setup's fixed-base
-width; K1-K5: the prove's shapes), each beside its bound; the Jacobian
+width; K1, K2, K5: the prove's shapes; K3 and K4 at every (M, B) of one
+window batch of the prove, `scan_levels`, after edge and ragged chain
+counts, with each level's ms, threads and bound), each beside its
+bound; the Jacobian
 engine's K8, K9a, K9b and K9c the same way (edge cases P = Q, P = -Q,
 identity on each side and flagged leaves against the host group, then the
 shapes of its 2^log2 setup and prove); and the port's MSM on both engines
@@ -87,8 +90,8 @@ CSRC = "ckb_zkp_tpu_torch/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "mont_mul": ("mont_mul.cu", "ckb_zkp_tpu/ops/pallas_field.py:323"),
     "scan_prefix_madd": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:248"),
-    "scan_prefix_add": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:297"),
-    "scan_total_add": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
+    "scan_prefix_add": ("rcb_team_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:297"),
+    "scan_total_add": ("rcb_team_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
     "rcb_add": ("rcb_add.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
     "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
     "ec_add": ("ec_add.cu", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
@@ -163,9 +166,9 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     """Element counts each kernel gets from the 2^log2 square-chain slice,
     derived from the code's own rules. The prove (`ops/msm.py`): every MSM
     has npad = 2^log2 points and runs `batch` windows of nb buckets per
-    launch; K2 scans batch * npad sorted leaves; K3's first level scans the
-    batch * npad / 32 block totals; K4's first level and K5 (E = before +
-    W[q]) run at batch * nb; K1 multiplies 2^log2 witness rows. The setup:
+    launch; K2 scans batch * npad sorted leaves; K5 (E = before + W[q])
+    runs at batch * nb; K1 multiplies 2^log2 witness rows (K3 and K4's
+    levels: `scan_levels`). The setup:
     K6 runs once per window at the fixed-base width, 2^log2 for G1 and G2.
     The Jacobian engine (8-bit windows, `jb` of them per batch): K9b sums
     jb * npad sorted leaves, K9c their jb * npad / 32 block totals, K8's
@@ -181,11 +184,91 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     jb = max(1, min(scalar_bits // msm._FIXED_BASE_BITS, msm._WINDOW_BATCH_POINTS // npad))
     jnb = 1 << msm._FIXED_BASE_BITS
     return {"mont_mul": npad, "scan_prefix_madd": batch * npad,
-            "scan_prefix_add": batch * npad // msm._RCB_B,
-            "scan_total_add": batch * nb, "rcb_add": batch * nb, "rcb_madd": npad,
+            "rcb_add": batch * nb, "rcb_madd": npad,
             "ec_add": jb * jnb * msm._SCAN_B, "ec_madd": min(npad, msm._FB_CHUNK),
             "ec_block_totals_madd": jb * npad,
             "ec_block_totals_add": jb * npad // msm._SCAN_B}
+
+
+def scan_levels(log2: int, scalar_bits: int = 256, batch: int | None = None) -> list:
+    """(kernel, M, B) of each K3 and K4 launch of one window batch of a
+    2^log2-point RCB MSM, in the order `ops/msm.py` makes them, from its own
+    constants: `_boundary_before` scans the batch's k rows of npad / _RCB_B
+    block totals with K3 while a row holds more than _TOP_MAX points, each
+    row padded to a multiple of B; `_reduce_pts` sums the k rows of nb - 1
+    bucket prefixes with K4 while a row holds more than _SMALL_SCAN_MAX,
+    then once with B = what is left (no launch if one point is). `batch`:
+    the windows of the batch (default: a full batch). At 2^20: K3 (65536,
+    32), (2048, 32); K4 (131072, 32), (4096, 32), (128, 32), (4, 2)."""
+    from ckb_zkp_tpu_torch.ops import msm
+
+    npad = 1 << log2
+    c = msm.DeviceCurveGroup._msm_window_bits(npad)
+    k = batch or max(1, min(scalar_bits // c, msm._WINDOW_BATCH_POINTS // npad))
+    B = msm._RCB_B
+    out = []
+    n = -(-npad // B)
+    while n > msm._TOP_MAX:
+        out.append(("scan_prefix_add", k * -(-n // B) * B, B))
+        n = -(-n // B)
+    n = (1 << c) - 1
+    while n > msm._SMALL_SCAN_MAX:
+        out.append(("scan_total_add", k * -(-n // B) * B, B))
+        n = -(-n // B)
+    if n > 1:
+        out.append(("scan_total_add", k * n, n))
+    return out
+
+
+# K3/K4 shapes besides the prove's levels: the earlier slices' edge shapes
+# and ragged chain counts (4229 chains fill the last 256-thread block only
+# in part, G1 and G2; 67 chains of B = 5 run in one-warp blocks)
+SCAN_EDGE = ((1 << 15, 32), (5 * 64, 5), (4229 * 32, 32), (67 * 5, 5))
+
+
+def scan_level_checks(record, rng, curve, log2: int) -> list:
+    """K3 and K4 (G1, G2) against their plain versions, bit for bit, at the
+    shapes of SCAN_EDGE and then at every (M, B) of scan_levels(log2), each
+    level timed beside its bound, with the team kernel's threads (8 or 32
+    lanes a chain) and block size. Returns one record a level."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    levels = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        shapes = [(name, M, B, False) for M, B in SCAN_EDGE
+                  for name in ("scan_prefix_add", "scan_total_add")]
+        shapes += [(name, M, B, True) for name, M, B in scan_levels(log2)]
+        for name, M, B, main in shapes:
+            pts = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
+            kern = getattr(cuda_rcb, name)
+            plain = getattr(cuda_rcb, name + "_plain")
+            pl, plain_ms = timed_once(lambda: plain(rg, pts, B))
+            k = kern(rg, pts, B)
+            if name == "scan_prefix_add":
+                k, pl = k[0] + k[1], pl[0] + pl[1]
+            chains = M // B
+            team, block = cuda_rcb.team_shape(rg, chains)
+            lanes = chains * team
+            w_out = 3 * M * eb if name == "scan_prefix_add" else 0
+            work = (3 * M * eb + w_out + 3 * chains * eb,
+                    M * fq_muls("add", ext) * IMAD_PER_FQ_MUL)
+            ms = cuda_ms(lambda: kern(rg, pts, B), 5)
+            record(name, max_abs_err(k, pl), ms, plain_ms,
+                   f"{group} N={M} B={B}, {chains} chains, {lanes} threads in blocks of "
+                   f"{block}" + ("; main path" if main else ""), work if main else None)
+            if main:
+                levels.append({"name": name, "group": group, "M": M, "B": B,
+                               "chains": chains, "threads": lanes, "block": block,
+                               "ms": ms, "plain_ms": plain_ms, **bound(*work)})
+            del pts, k, pl
+        torch.cuda.empty_cache()
+    return levels
 
 
 class Recorder:
@@ -210,7 +293,7 @@ class Recorder:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
-def phase_kernels(results: dict, log2: int) -> None:
+def phase_kernels(results: dict, log2: int) -> list:
     import numpy as np
     import torch
 
@@ -284,7 +367,7 @@ def phase_kernels(results: dict, log2: int) -> None:
                cuda_ms(lambda: cuda_rcb.rcb_madd_plain(rg, P, leaves), 2),
                f"{group} n=2^14, flagged leaves")
 
-    # the scan in all three modes at N = 2^15 (B = 32) and at a tail B = 5
+    # K2 at N = 2^15 (B = 32) and at a tail B = 5 (K3 and K4: scan_level_checks)
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         rg, cs = dg.rg, dg.cf.coord_shape
@@ -293,26 +376,13 @@ def phase_kernels(results: dict, log2: int) -> None:
             Y = rand_field(rng, N, cs, dg.fq)
             inf = torch.as_tensor(rng.random(N) < 0.1, device=DEVICE)
             xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
-            pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
-            what = f"{group} N={N} B={B}"
             k = cuda_rcb.scan_prefix_madd(rg, xw, yw, B)
             pl = cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B)
             torch.cuda.synchronize()
             record("scan_prefix_madd", max_abs_err(k[0] + k[1], pl[0] + pl[1]),
                    cuda_ms(lambda: cuda_rcb.scan_prefix_madd(rg, xw, yw, B), 5),
-                   cuda_ms(lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B), 1), what)
-            k = cuda_rcb.scan_prefix_add(rg, pts, B)
-            pl = cuda_rcb.scan_prefix_add_plain(rg, pts, B)
-            torch.cuda.synchronize()
-            record("scan_prefix_add", max_abs_err(k[0] + k[1], pl[0] + pl[1]),
-                   cuda_ms(lambda: cuda_rcb.scan_prefix_add(rg, pts, B), 5),
-                   cuda_ms(lambda: cuda_rcb.scan_prefix_add_plain(rg, pts, B), 1), what)
-            k = cuda_rcb.scan_total_add(rg, pts, B)
-            pl = cuda_rcb.scan_total_add_plain(rg, pts, B)
-            torch.cuda.synchronize()
-            record("scan_total_add", max_abs_err(k, pl),
-                   cuda_ms(lambda: cuda_rcb.scan_total_add(rg, pts, B), 5),
-                   cuda_ms(lambda: cuda_rcb.scan_total_add_plain(rg, pts, B), 1), what)
+                   cuda_ms(lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B), 1),
+                   f"{group} N={N} B={B}")
 
     # every kernel at the shapes the slice gives it, K1 also with a
     # broadcast constant operand (to_mont/from_mont read it with step 0);
@@ -373,20 +443,8 @@ def phase_kernels(results: dict, log2: int) -> None:
                (N * eb + 3 * N * eb + 3 * (N // B) * eb,
                 live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
         del xw, yw, k, pl
-        for name, N in (("scan_prefix_add", sizes["scan_prefix_add"]),
-                        ("scan_total_add", sizes["scan_total_add"])):
-            pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
-            kern = getattr(cuda_rcb, name)
-            plain = getattr(cuda_rcb, name + "_plain")
-            pl, plain_ms = timed_once(lambda: plain(rg, pts, B))
-            k = kern(rg, pts, B)
-            w_out = 3 * N * eb if name == "scan_prefix_add" else 0
-            if name == "scan_prefix_add":
-                k, pl = k[0] + k[1], pl[0] + pl[1]
-            record(name, max_abs_err(k, pl), cuda_ms(lambda: kern(rg, pts, B), 3),
-                   plain_ms, f"{group} N={N} B={B}; main path",
-                   (3 * N * eb + w_out + 3 * (N // B) * eb,
-                    N * fq_muls("add", ext) * IMAD_PER_FQ_MUL))
+    torch.cuda.empty_cache()
+    levels = scan_level_checks(record, rng, curve, log2)
     torch.cuda.empty_cache()
     jacobian_kernels(record, rng, curve, sizes)
     torch.cuda.empty_cache()
@@ -409,6 +467,7 @@ def phase_kernels(results: dict, log2: int) -> None:
             if got != want:
                 raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
         log(f"msm {group} n={n}: both engines equal to the host-int MSM")
+    return levels
 
 
 @contextlib.contextmanager
@@ -1049,7 +1108,8 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    phase_kernels(results, args.log2)
+    levels = phase_kernels(results, args.log2)
+    log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
     t2 = time.perf_counter()

@@ -1,6 +1,6 @@
 // Projective points and the Renes-Costello-Batina formulas (a = 0) shared
-// by the port's point kernels (rcb_add.cu, rcb_madd.cu, rcb_scan.cu), and
-// the host-side helpers of their C entries.
+// by the port's point kernels (rcb_add.cu, rcb_madd.cu, rcb_scan.cu,
+// rcb_team_scan.cu), and the host-side helpers of their C entries.
 //
 // Points are homogeneous projective (X : Y : Z) with the identity
 // (0 : 1 : 0); in device memory each coordinate is the reference's row of

@@ -1,15 +1,16 @@
-// K2 / K2a / K2b / K3 / K4 rcb_scan: replaces the _scan_fn kernels of
-// ckb_zkp_tpu/ops/pallas_rcb.py: _scan_prefix_madd_packedf_kernel (K2,
-// mode 0), _scan_prefix_add_kernel (K3, mode 1), _scan_total_add_kernel
-// (K4, mode 2), _scan_prefix_madd_kernel (K2a, mode 3) and
-// _scan_prefix_madd_packed_kernel (K2b, mode 4).
+// K2 / K2a / K2b rcb_scan, and the C entry of K3 / K4: replaces the
+// _scan_fn kernels of ckb_zkp_tpu/ops/pallas_rcb.py:
+// _scan_prefix_madd_packedf_kernel (K2, mode 0), _scan_prefix_madd_kernel
+// (K2a, mode 3) and _scan_prefix_madd_packed_kernel (K2b, mode 4) here;
+// _scan_prefix_add_kernel (K3, mode 1) and _scan_total_add_kernel (K4,
+// mode 2) in rcb_team_scan.cu, a team of lanes per chain.
 //
 // Not carried over block by block: the TPU kernels work on limb-major
 // (B, R, SB, 128) tiles sized for VMEM and the MXU, with the sequential
 // dimension in the grid. Here one thread owns one block-column of B
-// sequential adds (rcb.cuh formulas, 32-bit words). What bounds them on the
-// H100 is the integer multiply rate (12 field multiplies per add, 11 per
-// mixed add, 3x that over Fq2) and too few threads: N = 2^20 with B = 32 is
+// sequential mixed adds (rcb.cuh formulas, 32-bit words). What bounds them
+// on the H100 is the integer multiply rate (11 field multiplies per mixed
+// add, 3x that over Fq2) and too few threads: N = 2^20 with B = 32 is
 // 32768 columns per window, so the MSM batches its windows into one launch
 // to widen the grid; a wider, work-split scan is later work. K2a reads its
 // leaves as 16-bit limb rows, twice K2b's packed words, so it moves more
@@ -33,11 +34,9 @@ __device__ __forceinline__ Fe<NW, EXT> load_leaf(const uint32_t* p,
 }
 
 // Thread g runs the B elements g*B .. g*B+B-1 from the identity, writing
-// each inclusive prefix W[g*B + b] (every MODE but 2) and the total T[g].
+// each inclusive prefix W[g*B + b] and the total T[g].
 // MODE 0: affine leaves as packed words, the infinity flag in bit 31 of
 //         the top X word (pack_limbs_flag); mixed add (Alg. 8).
-// MODE 1: projective leaves (X, Y, Z limb rows); complete add (Alg. 7).
-// MODE 2: as MODE 1, totals only.
 // MODE 3: affine leaves as limb rows, the flags a bool array; mixed add.
 // MODE 4: affine leaves as packed words (all 32 bits), the flags a bool
 //         array; mixed add.
@@ -45,8 +44,8 @@ template <int NW, int EXT, int MODE>
 __global__ void rcb_scan_kernel(CurveConsts c, uint32_t* wx, uint32_t* wy,
                                 uint32_t* wz, uint32_t* tx, uint32_t* ty,
                                 uint32_t* tz, const uint32_t* x,
-                                const uint32_t* y, const uint32_t* z,
-                                const bool* flags, long long ncols, int B) {
+                                const uint32_t* y, const bool* flags,
+                                long long ncols, int B) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= ncols) return;
   Pt<NW, EXT> acc = identity<NW, EXT>(c);
@@ -58,14 +57,12 @@ __global__ void rcb_scan_kernel(CurveConsts c, uint32_t* wx, uint32_t* wy,
       const uint32_t top = X2.v[EXT - 1][NW - 1];
       X2.v[EXT - 1][NW - 1] = top & 0x7FFFFFFFu;
       if (!(top >> 31)) acc = rcb_madd<NW, EXT>(acc, X2, Y2, c);
-    } else if constexpr (MODE == 3 || MODE == 4) {
+    } else {
       if (!flags[e])
         acc = rcb_madd<NW, EXT>(acc, load_leaf<NW, EXT, MODE>(x, e),
                                 load_leaf<NW, EXT, MODE>(y, e), c);
-    } else {
-      acc = rcb_add<NW, EXT>(acc, load_pt<NW, EXT>(x, y, z, e), c);
     }
-    if constexpr (MODE != 2) store_pt<NW, EXT>(wx, wy, wz, e, acc);
+    store_pt<NW, EXT>(wx, wy, wz, e, acc);
   }
   store_pt<NW, EXT>(tx, ty, tz, g, acc);
 }
@@ -76,18 +73,27 @@ constexpr int kScanThreads = 64;
 template <int MODE>
 void launch_scan(const CurveConsts& c, int ext, uint32_t* wx, uint32_t* wy,
                  uint32_t* wz, uint32_t* tx, uint32_t* ty, uint32_t* tz,
-                 const uint32_t* x, const uint32_t* y, const uint32_t* z,
-                 const bool* flags, long long ncols, int B, cudaStream_t s) {
+                 const uint32_t* x, const uint32_t* y, const bool* flags,
+                 long long ncols, int B, cudaStream_t s) {
   const unsigned grid = blocks_for(ncols, kScanThreads);
   if (ext == 1)
     rcb_scan_kernel<kNW, 1, MODE><<<grid, kScanThreads, 0, s>>>(
-        c, wx, wy, wz, tx, ty, tz, x, y, z, flags, ncols, B);
+        c, wx, wy, wz, tx, ty, tz, x, y, flags, ncols, B);
   else
     rcb_scan_kernel<kNW, 2, MODE><<<grid, kScanThreads, 0, s>>>(
-        c, wx, wy, wz, tx, ty, tz, x, y, z, flags, ncols, B);
+        c, wx, wy, wz, tx, ty, tz, x, y, flags, ncols, B);
 }
 
 }  // namespace
+
+namespace zkp {
+int launch_rcb_team_scan(const CurveConsts& c, int ext, bool prefix,
+                         uint32_t* wx, uint32_t* wy, uint32_t* wz,
+                         uint32_t* tx, uint32_t* ty, uint32_t* tz,
+                         const uint32_t* x, const uint32_t* y,
+                         const uint32_t* z, long long ncols, int B,
+                         cudaStream_t s);
+}  // namespace zkp
 
 extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
                             void* wx, void* wy, void* wz, void* tx, void* ty,
@@ -95,15 +101,25 @@ extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
                             const void* z, const void* flags, long long ncols,
                             int B, void* stream) {
   if (consts[0] != kNW || ncols <= 0 || B <= 0 || mode < 0 || mode > 4 ||
-      (ext != 1 && ext != 2) || ((mode == 3 || mode == 4) && !flags))
+      (ext != 1 && ext != 2) || ((mode == 3 || mode == 4) && !flags) ||
+      ((mode == 1 || mode == 2) && !z))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
+  // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
+  if ((mode == 1 || mode == 2) && ext == 2 && c.b3_small)
+    return (int)cudaErrorInvalidValue;
   auto w = [](void* p) { return (uint32_t*)p; };
   auto r = [](const void* p) { return (const uint32_t*)p; };
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 1 || mode == 2) {
+    const int rc = launch_rcb_team_scan(c, ext, mode == 1, w(wx), w(wy), w(wz),
+                                        w(tx), w(ty), w(tz), r(x), r(y), r(z),
+                                        ncols, B, s);
+    return rc ? rc : (int)cudaGetLastError();
+  }
   static decltype(&launch_scan<0>) const launch[] = {
-      &launch_scan<0>, &launch_scan<1>, &launch_scan<2>, &launch_scan<3>,
-      &launch_scan<4>};
+      &launch_scan<0>, nullptr, nullptr, &launch_scan<3>, &launch_scan<4>};
   launch[mode](c, ext, w(wx), w(wy), w(wz), w(tx), w(ty), w(tz), r(x), r(y),
-               r(z), (const bool*)flags, ncols, B, (cudaStream_t)stream);
+               (const bool*)flags, ncols, B, s);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu",
+SOURCES = ("rcb_team_scan.cu", "rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu",
            "probe_dma.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
 HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -159,6 +159,10 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_madd.restype = i
         L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 10 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
+        L.zkp_rcb_team_block.argtypes = [i, ll]
+        L.zkp_rcb_team_block.restype = i
+        L.zkp_rcb_team_lanes.argtypes = [i, ll]
+        L.zkp_rcb_team_lanes.restype = i
         L.zkp_ec_add.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_add.restype = i
         L.zkp_ec_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]

@@ -19,13 +19,17 @@ add), `_scan_prefix_add_kernel` (K3, projective leaves) and
 (`_scan_prefix_madd_kernel`, `:275`) and K2b
 (`_scan_prefix_madd_packed_kernel`, `:225`) are K2 with the flags in a
 separate bool array, over limb rows (K2a, twice K2b's leaf bytes) or
-packed words (K2b); the window probes launch them. On Hopper all five are
-one templated kernel (`rcb_scan_kernel`, modes 0-4): thread g runs the B
-elements g*B .. g*B+B-1 from the identity (0 : 1 : 0), writing every
-inclusive prefix W[g*B + b] (all but K4) and the block total T[g]. W is
-indexed by position, T by block, as in the reference. Each thread runs a
-chain of B dependent adds and the grid is N/B threads; the MSM widens it
-by scanning all of a batch of windows in one launch.
+packed words (K2b); the window probes launch them. On Hopper K2, K2a and
+K2b are one templated kernel (`csrc/rcb_scan.cu` `rcb_scan_kernel`, modes
+0, 3, 4): thread g runs the B elements g*B .. g*B+B-1 from the identity
+(0 : 1 : 0), writing every inclusive prefix W[g*B + b] and the block total
+T[g]. K3 and K4 (modes 1 and 2 of the same C entry) are
+`csrc/rcb_team_scan.cu`: the same fold, but a team of lanes runs one chain
+(8 lanes, each one Fq or Fq2 product of a level of Alg. 7; for G2 at few
+chains a warp, each Fq2 product split into Karatsuba's three), because their narrow levels (2-4096 chains) leave one thread per
+chain bound by the latency of twelve products in a row. W is indexed by
+position, T by block, as in the reference. The MSM widens K2's grid by
+scanning all of a batch of windows in one launch.
 
 Layouts: points are tuples (X, Y, Z) of (M, L) or (M, 2, L) int32 limb
 tensors; packed leaves are (M, R/2) int32 words (R = ext * L).
@@ -173,6 +177,15 @@ def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, flags=None):
         cuda_build.stream_ptr(T[0]),
     )
     return rc, (tuple(W) if with_w else None), tuple(T)
+
+
+def team_shape(rg, chains: int) -> tuple[int, int]:
+    """(lanes of a chain's team, threads per block) of the K3/K4 team
+    kernel for `chains` chains, as its C launcher picks them (for reports;
+    needs the card)."""
+    L = cuda_build.lib()
+    return (L.zkp_rcb_team_lanes(rg.cf.ext, chains),
+            L.zkp_rcb_team_block(rg.cf.ext, chains))
 
 
 def _check_blocks(M: int, B: int):

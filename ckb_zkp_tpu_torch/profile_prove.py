@@ -8,9 +8,10 @@ warm-up prove, `reps` timed proves (median and quartiles of the wall
 clock, each ending in a synchronize; the device memory held before and
 after them), then one prove under torch.profiler: the device's busy time
 (sum of kernel self times), its idle share of the wall clock, and the
-kernels by device time. With `--setup` the timed and profiled runs are
-setups instead (no prove). `--engine jacobian` runs setup and proves on
-the Jacobian MSM engine (`_use_rcb = False` on the card's device groups).
+40 kernels with the most device time. With `--setup` the timed and
+profiled runs are setups instead (no prove). `--engine jacobian` runs
+setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
+card's device groups).
 Prints the card's name and power limit beside every number. Needs a CUDA
 card.
 """
@@ -71,7 +72,7 @@ def _profiled(run, card: str) -> None:
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
     print(json.dumps({"profiled_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1 - busy / wall,
                       "kernel_launches": len(kernels), "card": card}))

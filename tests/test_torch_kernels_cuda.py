@@ -27,9 +27,30 @@ def smoke():
 
 def test_kernels_bit_equal_to_plain(smoke):
     results = {}
-    smoke.phase_kernels(results, 12)
+    smoke.phase_kernels(results, 14)  # the smallest slice whose prove launches K3
     assert set(results) == KERNELS
     assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
+
+
+def test_scan_levels_every_level_compared(smoke):
+    """K3 and K4 (G1, G2) held to their plain versions at every (M, B) a
+    2^14 prove launches (`scan_levels`), at the edge shapes and at the
+    ragged chain counts of `SCAN_EDGE`."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append((name, what))
+
+    levels = smoke.scan_level_checks(record, np.random.default_rng(1), get_curve("bn254"), 14)
+    want = [(g, *lv) for g in ("g1", "g2") for lv in smoke.scan_levels(14)]
+    assert [(r["group"], r["name"], r["M"], r["B"]) for r in levels] == want
+    assert all(r["bound_ms"] > 0 and r["ms"] > 0 for r in levels)
+    assert len(seen) == 2 * (2 * len(smoke.SCAN_EDGE) + len(smoke.scan_levels(14)))
 
 
 def test_k6_device_setup_equals_host_mode(smoke):

@@ -52,6 +52,7 @@ import ckb_zkp_tpu_torch.probes.scan
 import ckb_zkp_tpu_torch.probes.window
 import ckb_zkp_tpu_torch.probes.grid
 import ckb_zkp_tpu_torch.probes.dma
+import ckb_zkp_tpu_torch.probes.levels
 import ckb_zkp_tpu_torch.ops.mont_tc
 assert "jax" not in sys.modules, "a probe imported jax"
 jax_dir = os.path.realpath(sys.argv[1]) + os.sep
