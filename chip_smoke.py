@@ -10,7 +10,10 @@ process per source, in parallel; (3) every kernel of the setup's and the
 prover's paths (K1-K6) against its plain PyTorch version on the same CUDA
 tensors, bit-exact, with both times: at small shapes with edge values, then
 at the shapes the slice gives each kernel (K6: the setup's fixed-base
-width; K1, K2, K5: the prove's shapes; K3 and K4 at every (M, B) of one
+width; K1: the prove's; K2 at the prove's shape through a real sort order
+and K5 at every shape of the prove, `k5_shapes`, after the edge shapes and
+the G2 team boundary, `team_checks`, each with its event and device ms,
+team lanes, threads and bound; K3 and K4 at every (M, B) of one
 window batch of the prove, `scan_levels`, after edge and ragged chain
 counts, with each level's ms, threads and bound), each beside its
 bound; the Jacobian
@@ -23,8 +26,8 @@ against the host-mode queries point for point; (5) the slice: the device
 setup of a (2^log2 - 2)-constraint square chain with its stage times, one
 warm-up and one timed prove, the verifier's verdict on the proof and on a
 tampered public input, the kernel launch counts of the setup (K6) and of
-the timed prove (K1-K5), and a check that the timed prove leaves no device
-memory behind; (6) the same setup and prove on the Jacobian MSM engine
+the timed prove (K1-K5; every K2 launch through a sort order), and a check
+that the timed prove leaves no device memory behind; (6) the same setup and prove on the Jacobian MSM engine
 (`_use_rcb = False` on the two cached device groups, restored after):
 every query equal to the RCB setup's limb for limb on the rows both hold
 (the others at infinity), the proof equal to the RCB proof for the same
@@ -83,16 +86,17 @@ sys.path.insert(0, REPO)
 from ckb_zkp_tpu_torch.probes.common import (  # noqa: E402
     FQ_BYTES, IMAD_PER_FQ_MUL, bound, cuda_ms, fq_muls, imad_rate, max_abs_err,
     rand_field, smi)
+from ckb_zkp_tpu_torch.probes.levels import device_ms  # noqa: E402
 
 SEED = 20261016
 DEVICE = "cuda"
 CSRC = "ckb_zkp_tpu_torch/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "mont_mul": ("mont_mul.cu", "ckb_zkp_tpu/ops/pallas_field.py:323"),
-    "scan_prefix_madd": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:248"),
-    "scan_prefix_add": ("rcb_team_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:297"),
-    "scan_total_add": ("rcb_team_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
-    "rcb_add": ("rcb_add.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
+    "scan_prefix_madd": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:248"),
+    "scan_prefix_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:297"),
+    "scan_total_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
+    "rcb_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
     "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
     "ec_add": ("ec_add.cu", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
     "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
@@ -220,6 +224,154 @@ def scan_levels(log2: int, scalar_bits: int = 256, batch: int | None = None) -> 
     return out
 
 
+def k5_shapes(log2: int, scalar_bits: int = 256) -> list:
+    """(points, launches a MSM) of each K5 shape of a 2^log2-point RCB MSM,
+    widest first, from `ops/msm.py`'s own constants. Per window batch of k
+    windows: `_boundary_before` adds at k * nb points once a K3 level after
+    the first and once for the Hillis-Steele top (no add without a K3
+    level), and `_bucket_prefixes` once more; the top's scan adds
+    ceil(log2 n_top) times at k * n_top points; `_weigh_buckets` adds c + 2
+    times at k points (`_scale_pow2_minus1`'s c doublings and its negated
+    point, then the sum). The window fold adds nwin * (c + 1) times at one
+    point. At 2^20 (8 batches of 2 windows): (131072, 24), (64, 40),
+    (2, 144), (1, 272)."""
+    from ckb_zkp_tpu_torch.ops import msm
+
+    npad = 1 << log2
+    c = msm.DeviceCurveGroup._msm_window_bits(npad)
+    nwin = scalar_bits // c
+    batch = max(1, min(nwin, msm._WINDOW_BATCH_POINTS // npad))
+    nb = 1 << c
+    counts: dict = {}
+
+    def add(n, times):
+        if times:
+            counts[n] = counts.get(n, 0) + times
+
+    for w0 in range(0, nwin, batch):
+        k = min(batch, nwin - w0)
+        n, levels = -(-npad // msm._RCB_B), 0
+        while n > msm._TOP_MAX:
+            n, levels = -(-n // msm._RCB_B), levels + 1
+        add(k * nb, levels + 1)
+        add(k * n, (n - 1).bit_length())
+        add(k, c + 2)
+    add(1, nwin * (c + 1))
+    return sorted(counts.items(), key=lambda kv: -kv[0])
+
+
+# K2 and K5 shapes besides the prove's: K2 with the leaves in order and
+# through random orders over fewer rows, at the earlier slices' edge shapes
+# and at the G2 team boundary (kSplitMax = 2048 chains and one more); K5 at
+# 1, 2 and 64 points, at the boundary (2048 and 2049 points) and at 2^14
+K2_EDGE = ((1 << 15, 32, False), (1 << 15, 32, True), (5 * 64, 5, True),
+           (2048 * 32, 32, True), (2049 * 32, 32, True))
+K5_EDGE = (1, 2, 64, 2048, 2049, 1 << 14)
+
+
+def team_checks(record, rng, curve, log2: int) -> list:
+    """K2 and K5 (G1, G2) against their plain versions, bit for bit: K2 at
+    the shapes of K2_EDGE (10% of the leaves flagged), then at the prove's
+    (batch * npad, 32) through the sort order of random digits over npad
+    leaves (1% flagged), as `_windows` calls it; K5 at K5_EDGE, then at
+    every shape of k5_shapes(log2). Each shape is timed by CUDA events
+    (`ms`, which for a few points is mostly the host's launch overhead) and
+    by the profiler's device time (`device_ms`); the main-path shapes also
+    beside their bound, with the team's lanes, threads and block size and
+    their launches in one 2^log2 prove. Returns one record a main-path
+    shape."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import _RCB_B, DeviceCurveGroup, device_group
+
+    sizes = path_shapes(log2, 256)
+    npad = 1 << log2
+    c = DeviceCurveGroup._msm_window_bits(npad)
+    k = sizes["scan_prefix_madd"] // npad
+    nwin = 256 // c
+    rows = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        msms = 4 if group == "g1" else 1  # MSMs of each group in a prove
+        shapes = [(M, B, "random" if o else "identity", False) for M, B, o in K2_EDGE]
+        shapes.append((k * npad, _RCB_B, "sorted digits", True))
+        for M, B, how, main in shapes:
+            nl = npad if main else (M if how == "identity" else M // 2 + 3)
+            X, Y = (rand_field(rng, nl, cs, dg.fq) for _ in range(2))
+            inf = torch.as_tensor(rng.random(nl) < (0.01 if main else 0.1), device=DEVICE)
+            xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
+            del X, Y
+            if how == "identity":
+                order = None
+            elif main:
+                gen = torch.Generator(device=DEVICE)
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                digits = torch.randint(0, 1 << c, (k, npad), generator=gen, device=DEVICE)
+                order = torch.sort(digits, dim=1).indices.reshape(-1)
+                del digits
+            else:
+                order = torch.as_tensor(rng.integers(0, nl, M), device=DEVICE)
+            live = M - int((inf if order is None else inf[order]).sum())
+
+            def fn():
+                return cuda_rcb.scan_prefix_madd(rg, xw, yw, B, order=order)
+
+            pl, plain_ms = timed_once(
+                lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B, order))
+            out = fn()
+            err = max_abs_err(out[0] + out[1], pl[0] + pl[1])
+            del out, pl
+            work = (M * eb + (0 if order is None else 8 * M) + 3 * M * eb
+                    + 3 * (M // B) * eb, live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL)
+            rows.append(team_row(record, rg, "scan_prefix_madd", group, M, B, M // B, fn,
+                                 err, plain_ms, work, main,
+                                 msms * -(-nwin // k) if main else 0,
+                                 f"{group} N={M} B={B}, leaves {how}"))
+            del xw, yw, order, inf
+            torch.cuda.empty_cache()
+        shapes = [(n, 0, False) for n in K5_EDGE]
+        shapes += [(n, msms * t, True) for n, t in k5_shapes(log2)]
+        for n, launches, main in shapes:
+            P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+            Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+
+            def fn():
+                return cuda_rcb.rcb_add(rg, P, Q)
+
+            pl, plain_ms = timed_once(
+                lambda: chunked_plain(cuda_rcb.rcb_add_plain, rg, P, Q))
+            err = max_abs_err(fn(), pl)
+            del pl
+            work = (9 * n * eb, n * fq_muls("add", ext) * IMAD_PER_FQ_MUL)
+            rows.append(team_row(record, rg, "rcb_add", group, n, None, n, fn, err,
+                                 plain_ms, work, main, launches, f"{group} n={n}"))
+            del P, Q
+        torch.cuda.empty_cache()
+    return [r for r in rows if r["main"]]
+
+
+def team_row(record, rg, name, group, size, B, teams, fn, err, plain_ms, work, main,
+             launches, what) -> dict:
+    """Time fn (a K2 or K5 call) by events and by device time, record it
+    against its plain version and return its row."""
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+
+    reps = 3 if size >= 1 << 20 else 20
+    ms = cuda_ms(fn, reps)
+    dev = device_ms(fn, reps)
+    lanes, block = cuda_rcb.team_shape(rg, teams)
+    record(name, err, ms, plain_ms,
+           f"{what}, {teams * lanes} threads ({lanes} a team) in blocks of {block}, "
+           f"device {dev} ms" + ("; main path" if main else ""), work if main else None)
+    row = {"name": name, "group": group, "size": size, "B": B, "launches_prove": launches,
+           "lanes": lanes, "threads": teams * lanes, "block": block, "ms": ms,
+           "device_ms": dev, "plain_ms": plain_ms, "main": main}
+    return row | (bound(*work) if main else {})
+
+
 # K3/K4 shapes besides the prove's levels: the earlier slices' edge shapes
 # and ragged chain counts (4229 chains fill the last 256-thread block only
 # in part, G1 and G2; 67 chains of B = 5 run in one-warp blocks)
@@ -299,7 +451,7 @@ def phase_kernels(results: dict, log2: int) -> list:
 
     from ckb_zkp_tpu_torch.host.pairing import get_curve
     from ckb_zkp_tpu_torch.ops import cuda_rcb
-    from ckb_zkp_tpu_torch.ops.msm import _RCB_B, device_group
+    from ckb_zkp_tpu_torch.ops.msm import device_group
 
     rng = np.random.default_rng(SEED)
     curve = get_curve("bn254")
@@ -367,23 +519,6 @@ def phase_kernels(results: dict, log2: int) -> list:
                cuda_ms(lambda: cuda_rcb.rcb_madd_plain(rg, P, leaves), 2),
                f"{group} n=2^14, flagged leaves")
 
-    # K2 at N = 2^15 (B = 32) and at a tail B = 5 (K3 and K4: scan_level_checks)
-    for group in ("g1", "g2"):
-        dg = device_group(curve, group, DEVICE)
-        rg, cs = dg.rg, dg.cf.coord_shape
-        for N, B in ((1 << 15, 32), (5 * 64, 5)):
-            X = rand_field(rng, N, cs, dg.fq)
-            Y = rand_field(rng, N, cs, dg.fq)
-            inf = torch.as_tensor(rng.random(N) < 0.1, device=DEVICE)
-            xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
-            k = cuda_rcb.scan_prefix_madd(rg, xw, yw, B)
-            pl = cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B)
-            torch.cuda.synchronize()
-            record("scan_prefix_madd", max_abs_err(k[0] + k[1], pl[0] + pl[1]),
-                   cuda_ms(lambda: cuda_rcb.scan_prefix_madd(rg, xw, yw, B), 5),
-                   cuda_ms(lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B), 1),
-                   f"{group} N={N} B={B}")
-
     # every kernel at the shapes the slice gives it, K1 also with a
     # broadcast constant operand (to_mont/from_mont read it with step 0);
     # the plain side runs once, timed by that call
@@ -401,7 +536,6 @@ def phase_kernels(results: dict, log2: int) -> list:
         record("mont_mul", max_abs_err(kf(), pl), cuda_ms(kf, 10), plain_ms,
                f"bn254 fr n={n} {what}; main path",
                ((nin + 1) * n * FQ_BYTES, n * IMAD_PER_FQ_MUL))
-    B = _RCB_B
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
@@ -420,30 +554,8 @@ def phase_kernels(results: dict, log2: int) -> list:
                (6 * n * eb + 2 * live * eb + n,
                 live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
         del P, leaves, pl
-        n = sizes["rcb_add"]
-        P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
-        Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
-        pl, plain_ms = timed_once(lambda: chunked_plain(cuda_rcb.rcb_add_plain, rg, P, Q))
-        record("rcb_add", max_abs_err(rg.add(P, Q), pl),
-               cuda_ms(lambda: rg.add(P, Q), 5), plain_ms,
-               f"{group} n={n}; main path",
-               (9 * n * eb, n * fq_muls("add", ext) * IMAD_PER_FQ_MUL))
-        N = sizes["scan_prefix_madd"]
-        X = rand_field(rng, N, cs, dg.fq)
-        Y = rand_field(rng, N, cs, dg.fq)
-        inf = torch.as_tensor(rng.random(N) < 0.01, device=DEVICE)
-        live = N - int(inf.sum())
-        xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
-        del X, Y
-        pl, plain_ms = timed_once(lambda: cuda_rcb.scan_prefix_madd_plain(rg, xw, yw, B))
-        k = cuda_rcb.scan_prefix_madd(rg, xw, yw, B)
-        record("scan_prefix_madd", max_abs_err(k[0] + k[1], pl[0] + pl[1]),
-               cuda_ms(lambda: cuda_rcb.scan_prefix_madd(rg, xw, yw, B), 3), plain_ms,
-               f"{group} N={N} B={B}; main path",
-               (N * eb + 3 * N * eb + 3 * (N // B) * eb,
-                live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
-        del xw, yw, k, pl
     torch.cuda.empty_cache()
+    team = team_checks(record, rng, curve, log2)
     levels = scan_level_checks(record, rng, curve, log2)
     torch.cuda.empty_cache()
     jacobian_kernels(record, rng, curve, sizes)
@@ -467,7 +579,7 @@ def phase_kernels(results: dict, log2: int) -> list:
             if got != want:
                 raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
         log(f"msm {group} n={n}: both engines equal to the host-int MSM")
-    return levels
+    return levels, team
 
 
 @contextlib.contextmanager
@@ -694,6 +806,7 @@ def phase_slice(card: str, log2: int) -> dict:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = dict(cuda_build.COUNTS)
+    ordered = cuda_build.ORDERED["scan_prefix_madd"]
     peak = torch.cuda.max_memory_allocated()
     after = torch.cuda.memory_allocated()
     log(f"timed prove: {prove_s:.3f} s, peak device memory {peak} bytes [{card}]")
@@ -708,6 +821,11 @@ def phase_slice(card: str, log2: int) -> dict:
     missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
+    log(f"K2 launches through a sort order in the timed prove: {ordered} of "
+        f"{launches['scan_prefix_madd']}")
+    if ordered != launches["scan_prefix_madd"]:
+        raise AssertionError("the prove launched K2 without an order: a sorted copy of "
+                             "the leaves came back")
     check_verdicts(curve, params, shape, proof)
     return {"curve": curve, "shape": shape, "toxic": toxic, "params": params,
             "r": r, "s": s, "proof": proof, "setup_launches": setup_launches,
@@ -1108,8 +1226,9 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    levels = phase_kernels(results, args.log2)
+    levels, team = phase_kernels(results, args.log2)
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
+    log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
     t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
     t2 = time.perf_counter()

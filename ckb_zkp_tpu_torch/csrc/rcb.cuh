@@ -1,6 +1,7 @@
-// Projective points and the Renes-Costello-Batina formulas (a = 0) shared
-// by the port's point kernels (rcb_add.cu, rcb_madd.cu, rcb_scan.cu,
-// rcb_team_scan.cu), and the host-side helpers of their C entries.
+// Projective points and the Renes-Costello-Batina mixed add (a = 0) shared
+// by the port's one-thread point kernels (rcb_madd.cu, rcb_scan.cu, the
+// probes), and the host-side helpers of the C entries. The team kernels
+// (rcb_team.cuh) run Alg. 7 and Alg. 8 split into levels over lanes.
 //
 // Points are homogeneous projective (X : Y : Z) with the identity
 // (0 : 1 : 0); in device memory each coordinate is the reference's row of
@@ -47,40 +48,6 @@ struct Pt {
 template <int NW, int EXT>
 __device__ __forceinline__ Pt<NW, EXT> identity(const CurveConsts& c) {
   return {fe_zero<NW, EXT>(), fe_one<NW, EXT>(c), fe_zero<NW, EXT>()};
-}
-
-// Renes-Costello-Batina Alg. 7 (a = 0), step for step as ops/rcb.py add.
-template <int NW, int EXT>
-__device__ __forceinline__ Pt<NW, EXT> rcb_add(const Pt<NW, EXT>& p,
-                                               const Pt<NW, EXT>& q,
-                                               const CurveConsts& c) {
-  using F = Fe<NW, EXT>;
-  F t0 = fe_mul<NW, EXT>(p.X, q.X, c);
-  F t1 = fe_mul<NW, EXT>(p.Y, q.Y, c);
-  F t2 = fe_mul<NW, EXT>(p.Z, q.Z, c);
-  F t3 = fe_mul<NW, EXT>(fe_add<NW, EXT>(p.X, p.Y, c),
-                         fe_add<NW, EXT>(q.X, q.Y, c), c);
-  t3 = fe_sub<NW, EXT>(t3, fe_add<NW, EXT>(t0, t1, c), c);
-  F t4 = fe_mul<NW, EXT>(fe_add<NW, EXT>(p.Y, p.Z, c),
-                         fe_add<NW, EXT>(q.Y, q.Z, c), c);
-  t4 = fe_sub<NW, EXT>(t4, fe_add<NW, EXT>(t1, t2, c), c);
-  F X3 = fe_mul<NW, EXT>(fe_add<NW, EXT>(p.X, p.Z, c),
-                         fe_add<NW, EXT>(q.X, q.Z, c), c);
-  F Y3 = fe_sub<NW, EXT>(X3, fe_add<NW, EXT>(t0, t2, c), c);
-  X3 = fe_add<NW, EXT>(t0, t0, c);
-  t0 = fe_add<NW, EXT>(X3, t0, c);
-  t2 = fe_mul_b3<NW, EXT>(t2, c);
-  F Z3 = fe_add<NW, EXT>(t1, t2, c);
-  t1 = fe_sub<NW, EXT>(t1, t2, c);
-  Y3 = fe_mul_b3<NW, EXT>(Y3, c);
-  Pt<NW, EXT> r;
-  r.X = fe_sub<NW, EXT>(fe_mul<NW, EXT>(t3, t1, c),
-                        fe_mul<NW, EXT>(t4, Y3, c), c);
-  r.Y = fe_add<NW, EXT>(fe_mul<NW, EXT>(t1, Z3, c),
-                        fe_mul<NW, EXT>(Y3, t0, c), c);
-  r.Z = fe_add<NW, EXT>(fe_mul<NW, EXT>(Z3, t4, c),
-                        fe_mul<NW, EXT>(t0, t3, c), c);
-  return r;
 }
 
 // Alg. 8 (Q = (x2, y2, 1), Q not the identity), as ops/rcb.py madd_noinf.

@@ -2,29 +2,34 @@
 // _add_fn, entry rcb_add_pallas): the elementwise complete projective add
 // (Alg. 7, a = 0) over Fq (G1) or Fq2 (G2).
 //
-// One thread per element, as the TPU kernel's lanes, but with 32-bit words
-// instead of limb-major 16-bit rows (rcb.cuh). Bound on the H100 by the
-// integer multiply rate: 12 field multiplies per add (3x that over Fq2),
-// against 9 coordinates of 64 B (128 B over Fq2) moved. The entry launches
-// on the caller's stream, allocates nothing, does not synchronise and
-// returns cudaGetLastError().
-#include "rcb.cuh"
+// The prover's MSM launches it 480 times a G2 MSM and as often a G1 one, at
+// 2^17, 64, 2 and 1 points (ops/msm.py: bucket boundaries, Hillis-Steele
+// top, weighting, window fold). At a few points one thread running Alg. 7's
+// twelve products in a row (36 over Fq2, with spills) is a single lane's
+// latency; so a team of lanes adds one pair of points with the three-level
+// step of rcb_team.cuh (8 lanes; for G2 up to kSplitMax points a warp, each
+// Fq2 product on three lanes), with no chain: p and q go from their limb
+// rows straight into the team's word rows, and the sum leaves in 16-B
+// stores by the team. At 2^17 points the bound is the integer multiply
+// rate (12 field multiplies an add, 3x that over Fq2, against 9
+// coordinates of 64 B, 128 B over Fq2), and the team's extra instructions
+// make G1 slower there than one thread a point (PERF.md). The entry
+// launches on the caller's stream, allocates nothing, does not synchronise
+// and returns cudaGetLastError().
+#include "rcb_team.cuh"
 
 using namespace zkp;
 
 namespace {
 
-template <int NW, int EXT>
-__global__ void rcb_add_kernel(CurveConsts c, uint32_t* ox, uint32_t* oy,
-                               uint32_t* oz, const uint32_t* x1,
-                               const uint32_t* y1, const uint32_t* z1,
-                               const uint32_t* x2, const uint32_t* y2,
-                               const uint32_t* z2, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Pt<NW, EXT> p = load_pt<NW, EXT>(x1, y1, z1, i);
-  const Pt<NW, EXT> q = load_pt<NW, EXT>(x2, y2, z2, i);
-  store_pt<NW, EXT>(ox, oy, oz, i, rcb_add<NW, EXT>(p, q, c));
+template <int EXT, bool SPLIT>
+cudaError_t launch(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
+                   uint32_t* oz, const uint32_t* x1, const uint32_t* y1,
+                   const uint32_t* z1, const uint32_t* x2, const uint32_t* y2,
+                   const uint32_t* z2, long long n, cudaStream_t s) {
+  using L = Team<kNW, EXT, SPLIT, 0>;
+  return launch_team<L>(&rcb_team_add<kNW, EXT, SPLIT>, EXT, n, s, c, ox, oy,
+                        oz, x1, y1, z1, x2, y2, z2, n);
 }
 
 }  // namespace
@@ -36,16 +41,14 @@ extern "C" int zkp_rcb_add(const uint32_t* consts, int ext, void* ox,
   if (consts[0] != kNW || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
-  const unsigned grid = blocks_for(n, kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
+  // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
+  if (ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
   auto u = [](const void* p) { return (const uint32_t*)p; };
-  if (ext == 1)
-    rcb_add_kernel<kNW, 1><<<grid, kThreads, 0, s>>>(
-        c, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, u(x1), u(y1), u(z1),
-        u(x2), u(y2), u(z2), n);
-  else
-    rcb_add_kernel<kNW, 2><<<grid, kThreads, 0, s>>>(
-        c, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, u(x1), u(y1), u(z1),
-        u(x2), u(y2), u(z2), n);
-  return (int)cudaGetLastError();
+  auto w = [](void* p) { return (uint32_t*)p; };
+  decltype(&launch<1, false>) f = ext == 1               ? &launch<1, false>
+                                  : team_split(ext, n) ? &launch<2, true>
+                                                       : &launch<2, false>;
+  const int rc = (int)f(c, w(ox), w(oy), w(oz), u(x1), u(y1), u(z1), u(x2),
+                        u(y2), u(z2), n, (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
 }

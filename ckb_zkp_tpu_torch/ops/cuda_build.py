@@ -11,7 +11,8 @@ hash of the sources, so a checkout builds its own kernels. There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 
 ``COUNTS`` holds one integer per kernel wrapper; a wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. ``ORDERED`` counts K2's launches
+that read their leaves through an order (the MSM's all do).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("rcb_team_scan.cu", "rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu",
            "probe_dma.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
+HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -65,13 +66,16 @@ COUNTS = {
     "probe_xor_grid2d": 0,  # P22
 }
 
+ORDERED = {"scan_prefix_madd": 0}  # K2 launches given an order
+
 _lib = None
 BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
+    for counts in (COUNTS, ORDERED):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -2,8 +2,10 @@
 (blocked RCB scans): wrappers, plain versions and launch counters.
 
 K5 replaces `ops/pallas_rcb.py` `_add_kernel` (via `_add_fn`, entry
-`rcb_add_pallas`): one thread per element runs Alg. 7 (12 field
-multiplies; 3x that over Fq2), bound by the integer multiply rate.
+`rcb_add_pallas`): Alg. 7 on each pair of points, one pair a team of lanes
+(`csrc/rcb_team.cuh`, launched by `csrc/rcb_add.cu`), one product of a
+level of Alg. 7 a lane, because the MSM's launches of 1-64 points leave a
+thread running Alg. 7's twelve products in a row bound by their latency.
 
 K6 replaces `ops/pallas_rcb.py:204` `_madd_kernel` (via `_madd_fn`, entry
 `rcb_madd_pallas`): one thread per element runs Alg. 8 (11 multiplies) on a
@@ -15,21 +17,22 @@ K2, K3 and K4 replace three `_scan_fn` kernels of `ops/pallas_rcb.py`:
 `_scan_prefix_madd_packedf_kernel` (K2, sorted affine leaves packed two
 limbs per word with the infinity flag in bit 31 of the top X word, mixed
 add), `_scan_prefix_add_kernel` (K3, projective leaves) and
-`_scan_total_add_kernel` (K4, block totals only). K2a
-(`_scan_prefix_madd_kernel`, `:275`) and K2b
-(`_scan_prefix_madd_packed_kernel`, `:225`) are K2 with the flags in a
-separate bool array, over limb rows (K2a, twice K2b's leaf bytes) or
-packed words (K2b); the window probes launch them. On Hopper K2, K2a and
-K2b are one templated kernel (`csrc/rcb_scan.cu` `rcb_scan_kernel`, modes
-0, 3, 4): thread g runs the B elements g*B .. g*B+B-1 from the identity
-(0 : 1 : 0), writing every inclusive prefix W[g*B + b] and the block total
-T[g]. K3 and K4 (modes 1 and 2 of the same C entry) are
-`csrc/rcb_team_scan.cu`: the same fold, but a team of lanes runs one chain
-(8 lanes, each one Fq or Fq2 product of a level of Alg. 7; for G2 at few
-chains a warp, each Fq2 product split into Karatsuba's three), because their narrow levels (2-4096 chains) leave one thread per
-chain bound by the latency of twelve products in a row. W is indexed by
-position, T by block, as in the reference. The MSM widens K2's grid by
-scanning all of a batch of windows in one launch.
+`_scan_total_add_kernel` (K4, block totals only): block g of B elements is
+folded from the identity (0 : 1 : 0), writing every inclusive prefix
+W[g*B + b] and the block total T[g]. On Hopper all three run on a team of
+lanes a chain (`csrc/rcb_team.cuh` via `csrc/rcb_team_scan.cu`, modes 0-2
+of `zkp_rcb_scan`): 8 lanes, each one Fq or Fq2 product of a level of Alg.
+8 (K2) or Alg. 7 (K3, K4); for G2 at few chains a warp, each Fq2 product
+split into Karatsuba's three. K2 reads its leaves through the sort order
+(`order`): leaf e of the scan is row order[e] of the unsorted packed arrays,
+so no sorted copy is written for it. K2a (`_scan_prefix_madd_kernel`,
+`:275`) and K2b (`_scan_prefix_madd_packed_kernel`, `:225`) are K2 with the
+flags in a separate bool array, over limb rows (K2a, twice K2b's leaf
+bytes) or packed words (K2b); the window probes launch them, and they keep
+the first port's design (`csrc/rcb_scan.cu` `rcb_scan_kernel`, modes 3 and
+4: one thread a chain). W is indexed by position, T by block, as in the
+reference. The MSM widens K2's grid by scanning all of a batch of windows
+in one launch.
 
 Layouts: points are tuples (X, Y, Z) of (M, L) or (M, 2, L) int32 limb
 tensors; packed leaves are (M, R/2) int32 words (R = ext * L).
@@ -157,14 +160,17 @@ def unpack_leaves(rg, xw, yw):
     return X, unpack_coord(rg, yw), inf
 
 
-def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, flags=None):
+def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, aux=None):
+    """Launch mode `mode` of `zkp_rcb_scan`; aux: the flags (M,) bool of
+    modes 3 and 4, or the order (M,) int64 of mode 0 (None: none)."""
     cs = rg.cf.coord_shape
     dev = ins[0].device
     G = M // B
     for i, t in enumerate(ins):
         cuda_build.check_tensor(t, f"rcb_scan input {i}")
-    if flags is not None:
-        cuda_build.check_tensor(flags, "rcb_scan flags", (M,), torch.bool)
+    if aux is not None:
+        cuda_build.check_tensor(aux, "rcb_scan order" if mode == 0 else "rcb_scan flags",
+                                (M,), torch.int64 if mode == 0 else torch.bool)
     W = [torch.empty((M, *cs), dtype=torch.int32, device=dev) for _ in range(3)] \
         if with_w else [None] * 3
     T = [torch.empty((G, *cs), dtype=torch.int32, device=dev) for _ in range(3)]
@@ -173,19 +179,18 @@ def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, flags=None):
         rg.kconsts.ctypes.data, rg.cf.ext, mode, *_launch_args(W),
         *_launch_args(T), ins[0].data_ptr(), ins[1].data_ptr(),
         None if z is None else z.data_ptr(),
-        None if flags is None else flags.data_ptr(), G, B,
+        None if aux is None else aux.data_ptr(), G, B,
         cuda_build.stream_ptr(T[0]),
     )
     return rc, (tuple(W) if with_w else None), tuple(T)
 
 
-def team_shape(rg, chains: int) -> tuple[int, int]:
-    """(lanes of a chain's team, threads per block) of the K3/K4 team
-    kernel for `chains` chains, as its C launcher picks them (for reports;
-    needs the card)."""
+def team_shape(rg, n: int) -> tuple[int, int]:
+    """(lanes of a team, threads per block) of the K2-K5 team kernels for
+    n chains (K2-K4) or points (K5), as their C launchers pick them (for
+    reports; needs the card)."""
     L = cuda_build.lib()
-    return (L.zkp_rcb_team_lanes(rg.cf.ext, chains),
-            L.zkp_rcb_team_block(rg.cf.ext, chains))
+    return L.zkp_rcb_team_lanes(rg.cf.ext, n), L.zkp_rcb_team_block(rg.cf.ext, n)
 
 
 def _check_blocks(M: int, B: int):
@@ -193,14 +198,20 @@ def _check_blocks(M: int, B: int):
         raise ValueError(f"scan: {M} elements are not a multiple of B = {B}")
 
 
-def scan_prefix_madd(rg, xw, yw, B: int):
-    """K2: sorted packed affine leaves (M = G*B) -> (W (M,), T (G,))."""
-    M = xw.shape[0]
+def scan_prefix_madd(rg, xw, yw, B: int, order=None):
+    """K2: packed affine leaves xw, yw (n, R/2) read through `order` (M,)
+    int64 (leaf e of the scan is row order[e]; None: the rows in order,
+    M = n), M = G*B -> (W (M,), T (G,)). The kernel reads rows as it is
+    told: every order entry must lie in [0, n)."""
+    M = xw.shape[0] if order is None else order.shape[0]
     _check_blocks(M, B)
     if xw.device.type == "cpu":
-        return scan_prefix_madd_plain(rg, xw, yw, B)
-    rc, W, T = _scan_launch(rg, 0, (xw.contiguous(), yw.contiguous()), M, B, True)
+        return scan_prefix_madd_plain(rg, xw, yw, B, order)
+    rc, W, T = _scan_launch(rg, 0, (xw.contiguous(), yw.contiguous()), M, B, True,
+                            None if order is None else order.contiguous())
     cuda_build.COUNTS["scan_prefix_madd"] += 1
+    if order is not None:
+        cuda_build.ORDERED["scan_prefix_madd"] += 1
     cuda_build.check(rc, "scan_prefix_madd")
     return W, T
 
@@ -279,7 +290,10 @@ def _scan_plain(rg, leaves, B: int, step, with_w: bool):
     return W, acc
 
 
-def scan_prefix_madd_plain(rg, xw, yw, B: int):
+def scan_prefix_madd_plain(rg, xw, yw, B: int, order=None):
+    """Plain K2: the leaves gathered through `order`, then the scan."""
+    if order is not None:
+        xw, yw = xw[order], yw[order]
     rgp = rg.plain
     return _scan_plain(rgp, unpack_leaves(rg, xw, yw), B, rgp.madd, True)
 

@@ -6,8 +6,9 @@ with the RCB Pippenger `_msm_rcb` (`:741-814`), and the setup's
 `fixed_base_msm` (`:982-1045`, K6 per window as `_fixed_base_rcb`,
 `:901-955`) with its host-built window table (`:1047`).
 
-Per window the MSM sorts the points by digit, runs K2 over the sorted
-packed affine leaves (every within-block prefix W and block totals T),
+Per window the MSM sorts the points by digit, runs K2 over the packed
+affine leaves in that order (every within-block prefix W and block totals
+T; K2 reads the leaves through the order, no sorted copy is made),
 forms the bucket-boundary prefixes E_b = prefix(T, g_b - 1) + W[q_b]
 (K3 levels, a Hillis-Steele top and K5), and telescopes the bucket
 weighting to (2^c - 1) E_last - sum_{b < nb-1} E_b (K4 levels and a B = n
@@ -344,12 +345,11 @@ class DeviceCurveGroup:
         return rg.to_jacobian(acc)
 
     def _windows(self, Xp, Yp, digits, c: int):
-        """Window sums sum_b b * B_b for a (k, npad) batch of digit rows."""
-        k, npad = digits.shape
+        """Window sums sum_b b * B_b for a (k, npad) batch of digit rows. K2
+        reads each row's leaves through its sort order (leaf j of row w is
+        Xp[order[w, j]]), so no sorted copy of the leaves is written."""
         order = torch.sort(digits, dim=1).indices
-        xs = Xp[order].reshape(k * npad, -1)
-        ys = Yp[order].reshape(k * npad, -1)
-        W, T = scan_prefix_madd(self.rg, xs, ys, _RCB_B)
+        W, T = scan_prefix_madd(self.rg, Xp, Yp, _RCB_B, order=order.reshape(-1))
         return self._weigh_buckets(self._bucket_prefixes(W, T, digits, c), c)
 
     def _bucket_prefixes(self, W, T, digits, c: int):

@@ -1,30 +1,41 @@
-"""K3 and K4 at every level of a 2^log2 prove, one tree's kernels against
-another's, in one call on the card.
+"""The team kernels at every shape of a 2^log2 prove, one tree's kernels
+against another's, in one call on the card: K3 and K4 at each level, K2 at
+the prove's window batch and K5 at each of its shapes.
 
     python3 ckb_zkp_tpu_torch/probes/levels.py --parent DIR [--log2 20] [--reps 20]
         [--out OUT]
 
 DIR is an unpacked checkout of an earlier commit (for example `git archive
-HEAD | tar -x -C _archive/parent`, a directory `.gitignore` lists). For
-every (kernel, M, B) of `chip_smoke.scan_levels(log2)`, G1 and G2, each
+HEAD | tar -x -C _archive/parent`, a directory `.gitignore` lists). Each
 tree builds its own kernels (in its own `ckb_zkp_tpu_torch/_build/`) and
-times `cuda_rcb.scan_prefix_add` / `scan_total_add` on the same points
-(drawn on the card from one seed) by CUDA events, in four processes:
-parent, this tree, this tree, parent. Every output of every run must be
-the same bits (a SHA-256 of its limbs), so the two trees' kernels agree
-level for level. A tree whose `cuda_rcb` has `team_shape` also reports
-each level's threads and block size. Prints the card's name and power
-limit, one line a level and one JSON line; with
-`--out`, writes the runs' JSON and both trees' nvcc logs (registers,
-spills) there. Needs a CUDA card; exits 2 without one.
+times them on the same inputs (drawn on the card from one seed), in four
+processes: parent, this tree, this tree, parent. The shapes come from this
+tree's `chip_smoke.py`: every (kernel, M, B) of `scan_levels(log2)` for
+`cuda_rcb.scan_prefix_add` / `scan_total_add`; `cuda_rcb.scan_prefix_madd`
+at (batch * npad, 32) over npad packed leaves (1% flagged) through the sort
+order of random digits, as the MSM's `_windows` calls it (a tree whose K2
+takes no order is timed as the gather of the sorted leaves and K2, as its
+MSM ran them); `cuda_rcb.rcb_add` at every shape of `k5_shapes(log2)`; G1
+and G2. Each call is timed by CUDA events and by the device time of its
+kernels in a `torch.profiler` trace (for a launch of a few points, events
+measure mostly the host's launch overhead). Every output of every run must
+be the same bits (a SHA-256 of its limbs), so the two trees' kernels agree
+shape for shape. A tree whose `cuda_rcb` has `team_shape` also reports each
+shape's threads and block size (K2 and K5 only where they run on the
+team). Prints the card's name and power limit,
+one line a shape, the registers and spills of the team kernels in both
+trees' nvcc logs, and one JSON line; with `--out`, writes the runs' JSON
+and both trees' nvcc logs there. Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -35,8 +46,33 @@ SEED = 20261017
 sys.path = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
 
 
-def worker(tree: str, levels: list, reps: int) -> dict:
-    """Time each level with the kernels of `tree` (imported from there)."""
+def device_ms(fn, iters: int) -> float | None:
+    """Mean milliseconds of device time a call of fn(): the summed
+    durations of the card's kernels in a `torch.profiler` trace of iters
+    calls, after a warm-up. Unlike events around a call, it leaves out the
+    host's launch overhead, which is most of what events measure for a
+    launch of a few points. None if two traces caught no kernel. (Here and
+    not in `common`: the worker imports the measured tree's `common`,
+    which may predate it.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(2):  # a trace that caught no kernel is taken again, once
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    return None
+
+
+def worker(tree: str, shapes: list, reps: int) -> dict:
+    """Time each shape with the kernels of `tree` (imported from there)."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -47,36 +83,91 @@ def worker(tree: str, levels: list, reps: int) -> dict:
     from ckb_zkp_tpu_torch.probes.common import cuda_ms, rand_field
 
     cuda_build.lib()
-    shape = getattr(cuda_rcb, "team_shape", None)
+    team_shape = getattr(cuda_rcb, "team_shape", None)
+    fused = "order" in inspect.signature(cuda_rcb.scan_prefix_madd).parameters
     curve = get_curve("bn254")
     out = []
     for gi, group in enumerate(("g1", "g2")):
         dg = device_group(curve, group, "cuda")
         rg, cs = dg.rg, dg.cf.coord_shape
-        for li, (name, M, B) in enumerate(levels):
-            rng = np.random.default_rng([SEED, gi, li])
-            pts = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
-            kern = getattr(cuda_rcb, name)
+        for si, (name, M, B, nleaves) in enumerate(shapes):
+            rng = np.random.default_rng([SEED, gi, si])
+            if name == "scan_prefix_madd":
+                X, Y = (rand_field(rng, nleaves, cs, dg.fq) for _ in range(2))
+                inf = torch.as_tensor(rng.random(nleaves) < 0.01, device="cuda")
+                xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, inf)
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                digits = torch.randint(0, 1 << 16, (M // nleaves, nleaves), generator=gen,
+                                       device="cuda")
+                order = torch.sort(digits, dim=1).indices.reshape(-1)
+                del X, Y, inf, digits
+                if fused:
+                    def fn():
+                        return cuda_rcb.scan_prefix_madd(rg, xw, yw, B, order=order)
+                else:  # the parent's window: sorted copies, then K2
+                    def fn():
+                        return cuda_rcb.scan_prefix_madd(rg, xw[order], yw[order], B)
+                teams = M // B
+            elif name == "rcb_add":
+                P = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
+                Q = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
 
-            def digest():
-                res = kern(rg, pts, B)
-                flat = res[0] + res[1] if name == "scan_prefix_add" else res
-                torch.cuda.synchronize()
-                h = hashlib.sha256()
-                for t in flat:
-                    h.update(t.cpu().numpy().tobytes())
-                return h.hexdigest()[:16]
+                def fn():
+                    return cuda_rcb.rcb_add(rg, P, Q)
+                teams = M
+            else:
+                pts = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
+                kern = getattr(cuda_rcb, name)
 
-            chains = M // B
-            row = {"name": name, "group": group, "M": M, "B": B, "chains": chains,
-                   "sha256": digest(), "ms": cuda_ms(lambda: kern(rg, pts, B), reps)}
-            if shape:
-                lanes, row["block"] = shape(rg, chains)
-                row["threads"] = chains * lanes
+                def fn():
+                    return kern(rg, pts, B)
+                teams = M // B
+
+            res = fn()
+            flat = res[0] + res[1] if name in ("scan_prefix_add", "scan_prefix_madd") else res
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for t in flat:
+                h.update(t.cpu().numpy().tobytes())
+            del res, flat
+            n = reps if M < 1 << 20 else max(3, reps // 4)
+            row = {"name": name, "group": group, "M": M, "B": B, "sha256": h.hexdigest()[:16],
+                   "ms": cuda_ms(fn, n), "device_ms": device_ms(fn, n)}
+            if team_shape and (fused or name not in ("scan_prefix_madd", "rcb_add")):
+                lanes, row["block"] = team_shape(rg, teams)
+                row["threads"] = teams * lanes
             out.append(row)
-            del pts
-        torch.cuda.empty_cache()
-    return {"tree": tree, "build_s": cuda_build.BUILD_INFO.get("seconds"), "levels": out}
+            fn = None
+            torch.cuda.empty_cache()
+    return {"tree": tree, "build_s": cuda_build.BUILD_INFO.get("seconds"), "fused_k2": fused,
+            "shapes": out}
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+# a kernel's own name in its mangled name: its length, the name, its
+# template arguments (the anonymous namespace's part names the file)
+_KERNEL = re.compile(r"\d+(rcb_team_scan|rcb_team_madd_scan|rcb_team_add|rcb_scan_kernel|"
+                     r"rcb_add_kernel)I(\w+?)EEv")
+
+
+def registers(log: str) -> list:
+    """(kernel instance, registers, spill stores, spill loads) of the RCB
+    scan and add kernels in an nvcc --resource-usage log."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name, spill = m.group(1), (0, 0)
+        elif m := _SPILL.search(line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := _REGS.search(line)) and name:
+            if k := _KERNEL.search(name):  # with its template arguments <NW,EXT,...>
+                targs = ",".join(re.findall(r"L[ib](\d+)E", k.group(2) + "E"))
+                rows.append((f"{k.group(1)}<{targs}>", int(m.group(1)), *spill))
+            name = None
+    return rows
 
 
 def main() -> int:
@@ -86,10 +177,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="a directory for the runs' JSON and nvcc logs")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--levels", help=argparse.SUPPRESS)
+    ap.add_argument("--shapes", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print("LEVELS " + json.dumps(worker(args.worker, json.loads(args.levels), args.reps)))
+        print("SHAPES " + json.dumps(worker(args.worker, json.loads(args.shapes), args.reps)))
         return 0
 
     import torch
@@ -106,22 +197,27 @@ def main() -> int:
     from ckb_zkp_tpu_torch.probes.common import smi
 
     card = smi()
-    levels = chip_smoke.scan_levels(args.log2)
+    sizes = chip_smoke.path_shapes(args.log2, 256)
+    shapes = [(name, M, B, None) for name, M, B in chip_smoke.scan_levels(args.log2)]
+    shapes.append(("scan_prefix_madd", sizes["scan_prefix_madd"], 32, 1 << args.log2))
+    shapes += [("rcb_add", n, None, None) for n, _ in chip_smoke.k5_shapes(args.log2)]
     parent = os.path.abspath(args.parent)
     runs = []
     for tree in (parent, REPO, REPO, parent):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--levels", json.dumps(levels), "--reps", str(args.reps)],
+             "--shapes", json.dumps(shapes), "--reps", str(args.reps)],
             capture_output=True, text=True, cwd=tree)
-        line = [x for x in proc.stdout.splitlines() if x.startswith("LEVELS ")]
+        line = [x for x in proc.stdout.splitlines() if x.startswith("SHAPES ")]
         if proc.returncode != 0 or not line:
             print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
             return 1
-        runs.append(json.loads(line[0][len("LEVELS "):]))
-        print(f"{tree}: built in {runs[-1]['build_s']} s", flush=True)
-    for i in range(len(runs[0]["levels"])):
-        rows = [r["levels"][i] for r in runs]
+        runs.append(json.loads(line[0][len("SHAPES "):]))
+        print(f"{tree}: built in {runs[-1]['build_s']} s, K2 fused with the order: "
+              f"{runs[-1]['fused_k2']}", flush=True)
+    summary = []
+    for i in range(len(runs[0]["shapes"])):
+        rows = [r["shapes"][i] for r in runs]
         if len({r["sha256"] for r in rows}) != 1:
             raise AssertionError(f"the trees' kernels disagree at {rows[0]}")
         old, new = (rows[0], rows[3]), (rows[1], rows[2])
@@ -129,26 +225,38 @@ def main() -> int:
         def shape_of(r):
             return f" ({r['threads']} threads, blocks of {r['block']})" if "block" in r else ""
 
-        print(f"{rows[0]['group']} {rows[0]['name']} M={rows[0]['M']} B={rows[0]['B']}: "
-              f"parent {old[0]['ms']:.6f} / {old[1]['ms']:.6f} ms{shape_of(old[0])}, "
-              f"change {new[0]['ms']:.6f} / {new[1]['ms']:.6f} ms{shape_of(new[0])}, "
-              f"outputs equal [{card}]")
+        def pair(a, b, key):
+            return " / ".join("not measured" if r[key] is None else f"{r[key]:.6f}"
+                              for r in (a, b))
+
+        r0 = rows[0]
+        print(f"{r0['group']} {r0['name']} M={r0['M']} B={r0['B']}: "
+              f"parent {pair(*old, 'ms')} ms, device {pair(*old, 'device_ms')}"
+              f"{shape_of(old[0])}; change {pair(*new, 'ms')} ms, device "
+              f"{pair(*new, 'device_ms')}{shape_of(new[0])}; outputs equal [{card}]")
+        summary.append({k: r0[k] for k in ("name", "group", "M", "B")}
+                       | {"parent_ms": [old[0]["ms"], old[1]["ms"]],
+                          "change_ms": [new[0]["ms"], new[1]["ms"]],
+                          "parent_device_ms": [old[0]["device_ms"], old[1]["device_ms"]],
+                          "change_device_ms": [new[0]["device_ms"], new[1]["device_ms"]]}
+                       | {k: new[0][k] for k in ("threads", "block") if k in new[0]})
+    regs = {}
+    for tag, tree in (("parent", parent), ("change", REPO)):
+        log = os.path.join(tree, "ckb_zkp_tpu_torch", "_build", "build.log")
+        text = open(log).read() if os.path.exists(log) else ""
+        regs[tag] = registers(text)
+        for name, n, st, ld in regs[tag]:
+            print(f"registers {tag}: {name} {n}, spill stores {st} B, loads {ld} B")
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, f"levels_build_{tag}.log"), "w") as f:
+                f.write(text)
     if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        for tag, tree in (("parent", parent), ("change", REPO)):
-            log = os.path.join(tree, "ckb_zkp_tpu_torch", "_build", "build.log")
-            if os.path.exists(log):
-                with open(log) as f, open(os.path.join(args.out, f"levels_build_{tag}.log"),
-                                          "w") as g:
-                    g.write(f.read())
         with open(os.path.join(args.out, "levels.json"), "w") as f:
-            json.dump({"card": card, "log2": args.log2, "runs": runs}, f, indent=1)
+            json.dump({"card": card, "log2": args.log2, "runs": runs, "registers": regs}, f,
+                      indent=1)
     print(card)
-    print(json.dumps({"levels": [
-        {k: runs[0]["levels"][i][k] for k in ("name", "group", "M", "B")}
-        | {"parent_ms": [runs[0]["levels"][i]["ms"], runs[3]["levels"][i]["ms"]],
-           "change_ms": [runs[1]["levels"][i]["ms"], runs[2]["levels"][i]["ms"]]}
-        for i in range(len(runs[0]["levels"]))]}))
+    print(json.dumps({"shapes": summary}))
     return 0
 
 

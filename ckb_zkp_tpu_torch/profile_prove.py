@@ -7,8 +7,9 @@ Runs the port's setup for a (2^log2 - 2)-constraint square chain, one
 warm-up prove, `reps` timed proves (median and quartiles of the wall
 clock, each ending in a synchronize; the device memory held before and
 after them), then one prove under torch.profiler: the device's busy time
-(sum of kernel self times), its idle share of the wall clock, and the
-40 kernels with the most device time. With `--setup` the timed and
+(sum of kernel self times), its idle share of the wall clock, the
+launches and device time of torch's gather kernels (names holding
+"gather"), and the 40 kernels with the most device time. With `--setup` the timed and
 profiled runs are setups instead (no prove). `--engine jacobian` runs
 setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
 card's device groups).
@@ -73,9 +74,12 @@ def _profiled(run, card: str) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
+    gathers = [v for n, v in by_name.items() if "gather" in n]
     print(json.dumps({"profiled_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1 - busy / wall,
-                      "kernel_launches": len(kernels), "card": card}))
+                      "kernel_launches": len(kernels),
+                      "gather_launches": sum(n for n, _ in gathers),
+                      "gather_ms": sum(ms for _, ms in gathers), "card": card}))
     for name, (n, ms) in top:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
 

@@ -53,6 +53,38 @@ def test_scan_levels_every_level_compared(smoke):
     assert len(seen) == 2 * (2 * len(smoke.SCAN_EDGE) + len(smoke.scan_levels(14)))
 
 
+def test_team_kernels_every_shape_compared(smoke):
+    """K2 (leaves in order and through random orders, the G2 team boundary
+    at 2048 and 2049 chains, the prove's shape through a sort order) and K5
+    (1, 2, 64, 2048, 2049 and 2^14 points, then every shape of a 2^14
+    prove), G1 and G2, bit for bit against their plain versions
+    (`team_checks`); the G2 team is a warp up to 2048 chains or points."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append(name)
+
+    curve = get_curve("bn254")
+    rows = smoke.team_checks(record, np.random.default_rng(2), curve, 14)
+    k5 = smoke.k5_shapes(14)
+    k2 = smoke.path_shapes(14, 256)["scan_prefix_madd"]
+    assert [(r["name"], r["group"], r["size"]) for r in rows] == [
+        (name, g, size) for g in ("g1", "g2")
+        for name, size in [("scan_prefix_madd", k2)] + [("rcb_add", n) for n, _ in k5]]
+    assert seen.count("scan_prefix_madd") == 2 * (len(smoke.K2_EDGE) + 1)
+    assert seen.count("rcb_add") == 2 * (len(smoke.K5_EDGE) + len(k5))
+    assert all(r["bound_ms"] > 0 and r["ms"] > 0 for r in rows)
+    rg2 = device_group(curve, "g2", "cuda").rg
+    assert cuda_rcb.team_shape(rg2, 2048)[0] == 32 and cuda_rcb.team_shape(rg2, 2049)[0] == 8
+
+
 def test_k6_device_setup_equals_host_mode(smoke):
     smoke.phase_setup_check(10)
 

@@ -1,6 +1,7 @@
 """The port's RCB group ops (K5's plain version) and the blocked scans (the
-plain versions of K2, K3 and K4) against the reference's RcbGroup and its
-CPU scan fallbacks. Projective coordinates are compared bit for bit."""
+plain versions of K2, also through a sort order, K3 and K4) against the
+reference's RcbGroup and its CPU scan fallbacks. Projective coordinates are
+compared bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -87,8 +88,18 @@ def _leaves(rdg, group, n, seed):
 
 @pytest.mark.parametrize("group,n,B", [("g1", 96, 32), ("g2", 96, 32), ("g1", 15, 5)])
 def test_scan_prefix_madd_matches_reference_fallback(group, n, B):
+    """Plain K2 against the reference's `_scan_prefix_madd` on n leaves (3
+    chains, 1/8 of the leaves flagged) that are n // 3 leaves gathered
+    through the sort order of 3 rows of random digits, as a window batch
+    sorts them: once on the gathered leaves, once reading the n // 3
+    leaves through the order."""
     rdg, rrg, dg = _groups(group)
-    X, Y, inf = _leaves(rdg, group, n, 21 + n)
+    k = 3
+    X0, Y0, inf0 = _leaves(rdg, group, n // k, 21 + n)
+    assert 0 < inf0.sum() < n // k
+    digits = np.random.default_rng(n).integers(0, 8, size=(k, n // k))
+    order = np.argsort(digits, axis=1, kind="stable").reshape(-1)
+    X, Y, inf = jnp.asarray(X0)[order], jnp.asarray(Y0)[order], inf0[order]
     w_get, T = ref_msm._scan_prefix_madd(rrg, (X, Y, jnp.asarray(inf)), B)
     Wref = w_get(jnp.arange(n))
     xw, yw = cuda_rcb.pack_limbs_flag(dg.rg, to_torch(X, "cpu"), to_torch(Y, "cpu"),
@@ -96,6 +107,36 @@ def test_scan_prefix_madd_matches_reference_fallback(group, n, B):
     W, Tp = cuda_rcb.scan_prefix_madd(dg.rg, xw, yw, B)
     assert _same(Wref, W) and _same(T, Tp)
     assert torch.equal(cuda_rcb.unpack_leaves(dg.rg, xw, yw)[2], torch.as_tensor(inf))
+    xw0, yw0 = cuda_rcb.pack_limbs_flag(dg.rg, to_torch(X0, "cpu"), to_torch(Y0, "cpu"),
+                                       torch.as_tensor(inf0))
+    W, Tp = cuda_rcb.scan_prefix_madd(dg.rg, xw0, yw0, B, order=torch.as_tensor(order))
+    assert _same(Wref, W) and _same(T, Tp)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_windows_through_order_equal_gathering_first(group):
+    """`_windows` (K2 through the sort order) against the same window sums
+    from the leaves gathered first, bit for bit, and against the host
+    group's sum_i d_i P_i of each row (2 rows of 32 points, 2-bit digits)."""
+    rdg, _, dg = _groups(group)
+    rg, host = dg.rg, dg.host_group
+    k, npad, c = 2, 32, 2
+    pts = _points(group, npad, 61)
+    pts[3] = host.infinity
+    X, Y, Z = dg.encode_points(pts)
+    xw, yw = cuda_rcb.pack_limbs_flag(rg, X, Y, dg.cf.is_zero(Z))
+    digits = torch.as_tensor(np.random.default_rng(62).integers(0, 1 << c, (k, npad)))
+    got = dg._windows(xw, yw, digits, c)
+    order = torch.sort(digits, dim=1).indices
+    W, T = cuda_rcb.scan_prefix_madd(rg, xw[order].reshape(k * npad, -1),
+                                     yw[order].reshape(k * npad, -1), 32)
+    want = dg._weigh_buckets(dg._bucket_prefixes(W, T, digits, c), c)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for row, p in zip(digits.tolist(), dg.decode_points_host(rg.to_jacobian(got))):
+        h = host.infinity
+        for d, q in zip(row, pts):
+            h = host.add(h, host.mul(q, d))
+        assert (p.infinity, p.x, p.y) == (h.infinity, h.x, h.y)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

@@ -1,12 +1,16 @@
-"""The K3/K4 levels of the port's RCB MSM: `chip_smoke.scan_levels` against
-the (M, B) that `_boundary_before` and `_reduce_pts` really pass to
-`cuda_rcb.scan_prefix_add` / `scan_total_add`, and the plain K3/K4 at the
-tail B = 2 and at a ragged chain count against the reference's CPU
-fallbacks (`ops/msm.py` `_full_prefix`, `_reduce_pts`), bit for bit."""
+"""The K3/K4 levels and K5 shapes of the port's RCB MSM:
+`chip_smoke.scan_levels` against the (M, B) that `_boundary_before` and
+`_reduce_pts` really pass to `cuda_rcb.scan_prefix_add` / `scan_total_add`,
+`chip_smoke.k5_shapes` against the point counts of its `rg.add` calls, and
+the plain K3/K4 at the tail B = 2 and at a ragged chain count against the
+reference's CPU fallbacks (`ops/msm.py` `_full_prefix`, `_reduce_pts`),
+bit for bit."""
 
+import math
 import os
 import random
 import sys
+import types
 
 import jax
 import numpy as np
@@ -30,18 +34,20 @@ CURVE = get_curve("bn254")
 
 
 @pytest.mark.parametrize("rcb_b,top,small,n,batch,full", [
-    (4, 8, 32, 64, 15, [("scan_prefix_add", 240, 4), ("scan_total_add", 3840, 4),
-                        ("scan_total_add", 960, 4), ("scan_total_add", 240, 16)]),
-    (16, 4, 8, 256, 15, [("scan_prefix_add", 240, 16), ("scan_total_add", 3840, 16),
-                         ("scan_total_add", 240, 16)]),
+    (4, 8, 32, 64, 7, [("scan_prefix_add", 112, 4), ("scan_total_add", 1792, 4),
+                       ("scan_total_add", 448, 4), ("scan_total_add", 112, 16)]),
+    (16, 4, 8, 128, 7, [("scan_prefix_add", 112, 16), ("scan_total_add", 1792, 16),
+                        ("scan_total_add", 112, 16)]),
 ])
 def test_scan_levels_are_the_msm_launches(monkeypatch, rcb_b, top, small, n, batch, full):
-    """A CPU MSM over n points (8-bit windows, 32 of them, 15 a batch) with
-    the block, the tops and the batch patched small: K3 runs one level, K4
+    """A CPU MSM over n points with 64-bit scalars (8-bit windows, 8 of
+    them, 7 a batch) with the block, the tops, the batch and the scalar
+    limbs patched small: K3 runs one level, K4
     two levels and a B = rest tail (first case) or one level and none (one
     point left, second case), and the last batch holds fewer windows than
-    the others. The calls, batch by batch, are scan_levels', and the MSM
-    equals the host-int one."""
+    the others. The K3/K4 calls, batch by batch, are scan_levels', the K5
+    calls (`rg.add`) by point count are k5_shapes', and the MSM equals the
+    host-int one."""
     monkeypatch.setattr(msm, "_RCB_B", rcb_b)
     monkeypatch.setattr(msm, "_TOP_MAX", top)
     monkeypatch.setattr(msm, "_SMALL_SCAN_MAX", small)
@@ -57,22 +63,38 @@ def test_scan_levels_are_the_msm_launches(monkeypatch, rcb_b, top, small, n, bat
         monkeypatch.setattr(msm, name, rec)
     curve = port_curve("bn254")
     dg = msm.device_group(curve, "g1", "cpu")
+    adds = {}
+    real_add = dg.rg.add
+
+    def rec_add(p, q):
+        npts = math.prod(torch.broadcast_shapes(p[0].shape, q[0].shape)[:-1])
+        adds[npts] = adds.get(npts, 0) + 1
+        return real_add(p, q)
+
+    monkeypatch.setattr(dg.rg, "add", rec_add)
+    bits = 64  # a quarter of the scalar limbs: 8 windows
+    monkeypatch.setattr(dg, "fr", types.SimpleNamespace(L=bits // 16, spec=dg.fr.spec))
     host = dg.host_group
     prng = random.Random(5)
     log2 = n.bit_length() - 1
     base = [host.mul(curve.g1_gen, prng.randrange(1, CURVE.fr.modulus)) for _ in range(8)]
     pts = [base[i % 8] for i in range(n)]
-    sc = [prng.randrange(curve.fr.modulus) for _ in range(n)]
+    sc = [prng.randrange(1 << bits) for _ in range(n)]
     got = dg.decode_point(dg.msm(dg.encode_points(pts), dg.encode_scalars(sc)))
     want = host.msm(pts, sc)  # the cached group may hold either package's curve
     assert (got.infinity, got.x, got.y) == (want.infinity, want.x, want.y)
-    nwin = 256 // 8
+    nwin = bits // 8
     assert nwin % batch  # a short last batch
-    assert chip_smoke.scan_levels(log2) == full
+    assert chip_smoke.scan_levels(log2, bits) == full
     want = []
     for w0 in range(0, nwin, batch):
         want += chip_smoke.scan_levels(log2, batch=min(batch, nwin - w0))
     assert calls == want
+    assert sorted(adds.items(), key=lambda kv: -kv[0]) == chip_smoke.k5_shapes(log2, bits)
+
+
+def test_k5_shapes_at_2_20():
+    assert chip_smoke.k5_shapes(20) == [(131072, 24), (64, 40), (2, 144), (1, 272)]
 
 
 def test_scan_levels_at_2_20():
