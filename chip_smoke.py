@@ -9,8 +9,12 @@ versions; (2) nvcc builds the kernels from ckb_zkp_tpu_torch/csrc, one
 process per source, in parallel; (3) every kernel of the setup's and the
 prover's paths (K1-K6) against its plain PyTorch version on the same CUDA
 tensors, bit-exact, with both times: at small shapes with edge values, then
-at the shapes the slice gives each kernel (K6: the setup's fixed-base
-width; K1: the prove's; K2 at the prove's shape through a real sort order
+at the shapes the slice gives each kernel (K6's fixed-base kernel at 1, 7,
+2047, 2048 and 2049 points with edge scalars, then at the setup's width,
+where it must also equal the per-window loop it replaced, `fixed_base_checks`,
+each width row with its registers and the loop's ms; the elementwise K6 at
+its edge values and at the loop's width; K1: the prove's; K2 at the
+prove's shape through a real sort order
 and K5 at every shape of the prove, `k5_shapes`, after the edge shapes and
 the G2 team boundary, `team_checks`, each with its event and device ms,
 team lanes, threads and bound; K3 and K4 at every (M, B) of one
@@ -25,8 +29,9 @@ device instance map against the host ints, and the device-branch queries
 against the host-mode queries point for point; (5) the slice: the device
 setup of a (2^log2 - 2)-constraint square chain with its stage times, one
 warm-up and one timed prove, the verifier's verdict on the proof and on a
-tampered public input, the kernel launch counts of the setup (K6) and of
-the timed prove (K1-K5; every K2 launch through a sort order), and a check
+tampered public input, the kernel launch counts of the setup (K6's
+fixed-base kernel once a query, 5 times, and the elementwise K6 never) and
+of the timed prove (K1-K5; every K2 launch through a sort order), and a check
 that the timed prove leaves no device memory behind; (6) the same setup and prove on the Jacobian MSM engine
 (`_use_rcb = False` on the two cached device groups, restored after):
 every query equal to the RCB setup's limb for limb on the rows both hold
@@ -48,7 +53,7 @@ arithmetic, per step or per tile) and the dma probe's P20-P22 (a ^ b
 under three blockings) at edge shapes and at 2^(log2 + 1), P7 also
 against P-tot's kernel and P8 and P11 against P-prepk's; then the window,
 scan, mxu, grid and dma probes, which must launch all twenty-one of the
-phase's kernels (31 kernels in the table in all).
+phase's kernels (32 kernels in the table in all: K6 has two entries).
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
@@ -98,6 +103,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "scan_total_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:316"),
     "rcb_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
     "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
+    "rcb_fixed_base": ("rcb_fixed_base.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
     "ec_add": ("ec_add.cu", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
     "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
     "ec_block_totals_madd": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:271"),
@@ -125,7 +131,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "probe_xor_grid2d": ("probe_dma.cu", "scripts/probe_dma.py:88"),
 }
 # the run whose launches each kernel's row reports
-SETUP_KERNELS = {"rcb_madd"}  # the RCB setup
+SETUP_KERNELS = {"rcb_fixed_base"}  # the RCB setup
+# the per-window loop that the setup's fixed-base kernel replaced (digits,
+# gathers, the elementwise K6 a window), run by `fixed_base_checks`
+LOOP_KERNELS = {"rcb_madd"}
 JAC_SETUP_KERNELS = {"ec_madd"}  # the Jacobian engine's setup
 JAC_PROVE_KERNELS = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
 PROBE_KERNELS = {"scan_prefix_madd_unpacked", "scan_prefix_madd_packed", "probe_madd_totals",
@@ -172,8 +181,10 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     has npad = 2^log2 points and runs `batch` windows of nb buckets per
     launch; K2 scans batch * npad sorted leaves; K5 (E = before + W[q])
     runs at batch * nb; K1 multiplies 2^log2 witness rows (K3 and K4's
-    levels: `scan_levels`). The setup:
-    K6 runs once per window at the fixed-base width, 2^log2 for G1 and G2.
+    levels: `scan_levels`). The setup: K6's fixed-base kernel runs once
+    a query at the fixed-base width, 2^log2 for G1 and G2 (the per-window
+    loop it replaced ran the elementwise K6, `rcb_madd`, once a window at
+    that width).
     The Jacobian engine (8-bit windows, `jb` of them per batch): K9b sums
     jb * npad sorted leaves, K9c their jb * npad / 32 block totals, K8's
     widest launches are the within-block prefixes of jb * nb queries of 32
@@ -188,7 +199,7 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     jb = max(1, min(scalar_bits // msm._FIXED_BASE_BITS, msm._WINDOW_BATCH_POINTS // npad))
     jnb = 1 << msm._FIXED_BASE_BITS
     return {"mont_mul": npad, "scan_prefix_madd": batch * npad,
-            "rcb_add": batch * nb, "rcb_madd": npad,
+            "rcb_add": batch * nb, "rcb_madd": npad, "rcb_fixed_base": npad,
             "ec_add": jb * jnb * msm._SCAN_B, "ec_madd": min(npad, msm._FB_CHUNK),
             "ec_block_totals_madd": jb * npad,
             "ec_block_totals_add": jb * npad // msm._SCAN_B}
@@ -423,6 +434,115 @@ def scan_level_checks(record, rng, curve, log2: int) -> list:
     return levels
 
 
+# fixed-base point counts besides the setup's width: one point, a partial
+# warp, and the G2 team boundary (kSplitMax = 2048 points and one more)
+FB_EDGE = (1, 7, 2047, 2048, 2049)
+
+
+def fixed_base_scalars(rng, n: int, r: int):
+    """n scalars as (n, 16) canonical limbs on the card, uniform below r's
+    top limb, with the edge rows first (as many as fit): 0, r - 1, windows
+    8-23 zero (a run of zero digits), every even window zero, every digit
+    255 (below r's top limb)."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops.limbs import ints_to_limbs
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    s = torch.randint(0, 1 << 16, (n, 16), generator=gen, device=DEVICE, dtype=torch.int32)
+    s[:, -1] = torch.randint(0, r >> 240, (n,), generator=gen, device=DEVICE,
+                             dtype=torch.int32)
+    edge = torch.as_tensor(ints_to_limbs([0, r - 1], 16).astype("int32"), device=DEVICE)
+    k = min(n, 5)
+    rows = torch.cat([edge, s[2:5].clone()])[:k]
+    if k > 2:
+        rows[2, 4:12] = 0
+    if k > 3:
+        rows[3] &= 0xFF00
+    if k > 4:
+        rows[4, :-1] = 0xFFFF
+    s[:k] = rows
+    return s
+
+
+def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
+    """K6's fixed-base kernel (G1, G2) against its plain version, bit for
+    bit, on random window tables: at the point counts of FB_EDGE with the
+    edge scalars of `fixed_base_scalars`, then at the setup's width
+    (`path_shapes(log2)`, plain in chunks of points), where its projective
+    totals must also equal the per-window loop's that it replaced (the
+    digits, the two table-row gathers and the elementwise K6 a window, on
+    the card). Each width row: the kernel's, the plain version's and the
+    loop's ms (events; kernel and loop also by device time), the bound for
+    the live steps this run's digits need (11 field products a step, 42
+    over Fq2) and the bytes (scalars, the tables once, the totals), the
+    registers and spills from the build log. Returns the rows and the
+    elementwise K6's launches in the loop's checked runs (one a group)."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+    from ckb_zkp_tpu_torch.probes.levels import registers
+    from ckb_zkp_tpu_torch.probes.levels import window_loop as loop
+
+    log = os.path.join(cuda_build.BUILD_DIR, "build.log")
+    regs = registers(open(log).read()) if os.path.exists(log) else []
+    r = curve.fr.modulus
+    n_full = path_shapes(log2, 256)["rcb_fixed_base"]
+    rows, loop_launches = [], 0
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        rows_tab = cuda_rcb.FB_WINDOWS * cuda_rcb.FB_ROWS
+        X, Y = (rand_field(rng, rows_tab, cs, dg.fq).reshape(
+            cuda_rcb.FB_WINDOWS, cuda_rcb.FB_ROWS, *cs) for _ in range(2))
+        for n in FB_EDGE + (n_full,):
+            sc = fixed_base_scalars(rng, n, r)
+            main = n == n_full
+
+            def fn():
+                return cuda_rcb.rcb_fixed_base(rg, X, Y, sc)
+
+            def plain(rg_, s):
+                return cuda_rcb.rcb_fixed_base_plain(rg_, X, Y, s[0])
+
+            pl, plain_ms = timed_once(lambda: chunked_plain(plain, rg, (sc,)))
+            out = fn()
+            err = max_abs_err(out, pl)
+            del pl
+            what = f"{group} n={n}, {cuda_rcb.FB_WINDOWS} windows"
+            if not main:
+                record("rcb_fixed_base", err, cuda_ms(fn, 5), plain_ms, what)
+                continue
+            before = cuda_build.COUNTS["rcb_madd"]
+            lp = loop(rg, X, Y, sc)
+            loop_launches += cuda_build.COUNTS["rcb_madd"] - before
+            if max_abs_err(out, lp):
+                raise AssertionError(f"rcb_fixed_base != the per-window loop ({group})")
+            del out, lp
+            live = sum(int((((sc >> sh) & 0xFF) != 0).sum()) for sh in (0, 8))
+            work = (n * cuda_rcb.FB_LIMBS * 4 + 2 * rows_tab * eb + 3 * n * eb,
+                    live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL)
+            ms = cuda_ms(fn, 5)
+            loop_ms = cuda_ms(lambda: loop(rg, X, Y, sc), 2)
+            kern = "rcb_fixed_base_kernel<8,1>" if ext == 1 else "rcb_team_fixed_base<8,2,0>"
+            reg = [x for x in regs if x[0] == kern]
+            record("rcb_fixed_base", err, ms, plain_ms,
+                   f"{what}, {live} live steps; main path (setup); the per-window loop "
+                   f"{loop_ms:.6f} ms", work)
+            rows.append({"group": group, "n": n, "windows": cuda_rcb.FB_WINDOWS,
+                         "live_steps": live, "ms": ms, "device_ms": device_ms(fn, 3),
+                         "plain_ms": plain_ms, "loop_ms": loop_ms,
+                         "loop_device_ms": device_ms(lambda: loop(rg, X, Y, sc), 2),
+                         "kernel": kern, "registers": reg[0][1] if reg else None,
+                         "spill_bytes": reg[0][2] if reg else None, **bound(*work)})
+            torch.cuda.empty_cache()
+        del X, Y
+    return rows, {"rcb_madd": loop_launches}
+
+
 class Recorder:
     """Kernel-vs-plain comparisons. The kernel table keeps the times and
     the bound of each kernel's first comparison at a main-path shape."""
@@ -540,7 +660,8 @@ def phase_kernels(results: dict, log2: int) -> list:
         dg = device_group(curve, group, DEVICE)
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
         eb = ext * FQ_BYTES  # bytes of one coordinate
-        # K6 at the setup's fixed-base width, flags as often as a zero digit
+        # the elementwise K6 at the per-window loop's width (off the path
+        # since the fixed-base kernel), flags as often as a zero digit
         n = sizes["rcb_madd"]
         P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
         leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
@@ -550,10 +671,12 @@ def phase_kernels(results: dict, log2: int) -> list:
             lambda: chunked_plain(cuda_rcb.rcb_madd_plain, rg, P, leaves))
         record("rcb_madd", max_abs_err(rg.madd(P, leaves), pl),
                cuda_ms(lambda: rg.madd(P, leaves), 5), plain_ms,
-               f"{group} n={n}; main path (setup)",
+               f"{group} n={n}; the per-window loop's width, off the path",
                (6 * n * eb + 2 * live * eb + n,
                 live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL))
         del P, leaves, pl
+    torch.cuda.empty_cache()
+    fixed, loop_launches = fixed_base_checks(record, rng, curve, log2)
     torch.cuda.empty_cache()
     team = team_checks(record, rng, curve, log2)
     levels = scan_level_checks(record, rng, curve, log2)
@@ -579,7 +702,7 @@ def phase_kernels(results: dict, log2: int) -> list:
             if got != want:
                 raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
         log(f"msm {group} n={n}: both engines equal to the host-int MSM")
-    return levels, team
+    return levels, team, fixed, loop_launches
 
 
 @contextlib.contextmanager
@@ -790,8 +913,9 @@ def phase_slice(card: str, log2: int) -> dict:
     setup_launches = dict(cuda_build.COUNTS)
     log(f"setup: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
     log(f"kernel launches in the setup: {json.dumps(setup_launches)}")
-    if setup_launches["rcb_madd"] <= 0:
-        raise AssertionError("the setup did not launch K6 (rcb_madd)")
+    if setup_launches["rcb_fixed_base"] != 5 or setup_launches["rcb_madd"]:
+        raise AssertionError("the setup did not launch K6's fixed-base kernel once a query "
+                             "(5 times) and the elementwise K6 (rcb_madd) no time")
     r, s = prng.randrange(1, fr), prng.randrange(1, fr)
     t0 = time.perf_counter()
     groth16.create_proof_from_shape(params, shape, r, s)
@@ -816,8 +940,8 @@ def phase_slice(card: str, log2: int) -> dict:
         raise AssertionError("a prove left device memory behind")
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the timed prove: {json.dumps(launches)}")
-    rcb_prove = (set(KERNELS) - SETUP_KERNELS - JAC_SETUP_KERNELS - JAC_PROVE_KERNELS
-                 - PROBE_KERNELS)
+    rcb_prove = (set(KERNELS) - SETUP_KERNELS - LOOP_KERNELS - JAC_SETUP_KERNELS
+                 - JAC_PROVE_KERNELS - PROBE_KERNELS)
     missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
@@ -1226,9 +1350,10 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    levels, team = phase_kernels(results, args.log2)
+    levels, team, fixed, loop_launches = phase_kernels(results, args.log2)
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
+    log(f"fixed base (K6 at the setup's width 2^{args.log2}, {card}): {json.dumps(fixed)}")
     t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
     t2 = time.perf_counter()
@@ -1244,6 +1369,7 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
         launches = (probes["launches"] if name in PROBE_KERNELS
+                    else loop_launches if name in LOOP_KERNELS
                     else run["setup_launches"] if name in SETUP_KERNELS
                     else jac["setup_launches"] if name in JAC_SETUP_KERNELS
                     else jac["prove_launches"] if name in JAC_PROVE_KERNELS

@@ -1,9 +1,12 @@
 // The team of lanes that runs one RCB point operation on Hopper, and the
 // kernels built on it: K3 / K4 (rcb_team_scan: chains of Alg. 7 adds over
 // projective points), K2 (rcb_team_madd_scan: chains of Alg. 8 mixed adds
-// over packed affine leaves, read through an order) and K5 (rcb_team_add:
-// one Alg. 7 add a team, no chain). Their launchers and C entries are
-// rcb_team_scan.cu (K2, K3, K4) and rcb_add.cu (K5).
+// over packed affine leaves, read through an order), K5 (rcb_team_add:
+// one Alg. 7 add a team, no chain) and K6's fixed-base MSM on G2
+// (rcb_team_fixed_base: a chain of Alg. 8 mixed adds a point over the
+// window-table rows its scalar's digits pick). Their launchers and C
+// entries are rcb_team_scan.cu (K2, K3, K4), rcb_add.cu (K5) and
+// rcb_fixed_base.cu (K6).
 //
 // What bounds most of these launches on the H100 is the latency of a chain
 // of dependent field products, not the IMAD rate: one thread running Alg.
@@ -663,6 +666,62 @@ __global__ void __launch_bounds__(256)
     flag = next;
   }
   t.store(tx, ty, tz, g);
+}
+
+// The fixed-base MSM's windows: kFbWin digits of 8 bits a scalar of kFbLimbs
+// canonical 16-bit limbs (digit w is byte w % 2 of limb w / 2), each picking
+// one of kFbRows rows of its window's table.
+constexpr int kFbWin = 32;
+constexpr int kFbLimbs = 16;
+constexpr int kFbRows = 256;
+
+// K6, the fixed-base MSM: team g folds the table rows (w, digit w of scalar
+// g), w = 0 .. kFbWin-1, of the packed words xw, yw (row w * kFbRows + d)
+// from the identity with Alg. 8, and writes the total only. A zero digit
+// picks row 0, the identity: the step is skipped and the row never read.
+// The scalar's digits go into the slot once (its limbs as packed words, so
+// byte w of them is digit w); the next live window's row is staged a step
+// ahead, as K2 stages its next leaf.
+template <int NW, int EXT, bool SPLIT>
+__global__ void __launch_bounds__(256)
+    rcb_team_fixed_base(CurveConsts c, uint32_t* ox, uint32_t* oy,
+                        uint32_t* oz, const uint32_t* xw, const uint32_t* yw,
+                        const uint32_t* sc, long long n) {
+  using L = Team<NW, EXT, SPLIT, 2 * NW * EXT + kFbLimbs / 2>;
+  constexpr int NWE = L::NWE;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const long long g = L::index();
+  if (g >= n) return;  // the whole team
+  const L t(smem);
+  uint32_t* const dw = t.raw + 2 * NWE;  // the digits, 4 a word
+  if (t.lane < kFbLimbs / 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(sc + g * kFbLimbs) + t.lane);
+    dw[t.lane] = (v.x & 0xFFFFu) | (v.y << 16);
+  }
+  t.init(c, true, true);
+  t.sync();
+  const uint8_t* const digit = reinterpret_cast<const uint8_t*>(dw);
+  auto live = [&](int w) {  // the first window from w on with a digit, or kFbWin
+    while (w < kFbWin && !digit[w]) ++w;
+    return w;
+  };
+  auto row = [&](int w) { return (long long)w * kFbRows + digit[w]; };
+  int w = live(0);
+  if (w < kFbWin) {
+    t.stage_leaf(xw, yw, row(w));
+    t.convert_leaf();
+  }
+  t.sync();
+  while (w < kFbWin) {
+    const int next = live(w + 1);
+    if (next < kFbWin) t.stage_leaf(xw, yw, row(next));
+    t.template products<true>(c);
+    t.combine(c);  // meanwhile every lane converts its chunks of the next row
+    if (next < kFbWin) t.convert_leaf();
+    t.sync();
+    w = next;
+  }
+  t.store(ox, oy, oz, g);
 }
 
 // K5: team g adds point g of (x1, y1, z1) and of (x2, y2, z2) with Alg. 7.

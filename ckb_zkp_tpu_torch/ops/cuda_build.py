@@ -27,8 +27,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rcb_team_scan.cu", "rcb_scan.cu", "ec_scan.cu", "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu",
-           "probe_dma.cu", "ec_add.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
+SOURCES = ("rcb_team_scan.cu", "rcb_fixed_base.cu", "rcb_scan.cu", "ec_scan.cu",
+           "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu", "probe_dma.cu", "ec_add.cu",
+           "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
 HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -38,7 +39,8 @@ COUNTS = {
     "scan_prefix_add": 0,  # K3
     "scan_total_add": 0,  # K4
     "rcb_add": 0,  # K5
-    "rcb_madd": 0,  # K6
+    "rcb_madd": 0,  # K6, elementwise
+    "rcb_fixed_base": 0,  # K6, the fixed-base MSM
     "ec_add": 0,  # K8
     "ec_madd": 0,  # K9a
     "ec_block_totals_madd": 0,  # K9b
@@ -161,6 +163,8 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_add.restype = i
         L.zkp_rcb_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_rcb_madd.restype = i
+        L.zkp_rcb_fixed_base.argtypes = [vp, i] + [vp] * 6 + [ll, vp]
+        L.zkp_rcb_fixed_base.restype = i
         L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 10 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
         L.zkp_rcb_team_block.argtypes = [i, ll]

@@ -8,10 +8,18 @@ level of Alg. 7 a lane, because the MSM's launches of 1-64 points leave a
 thread running Alg. 7's twelve products in a row bound by their latency.
 
 K6 replaces `ops/pallas_rcb.py:204` `_madd_kernel` (via `_madd_fn`, entry
-`rcb_madd_pallas`): one thread per element runs Alg. 8 (11 multiplies) on a
-projective point and an affine point, and keeps the projective point where
-the affine one's infinity flag is set. The flag is a bool array of the
-batch shape. The setup's fixed-base MSM is its caller.
+`rcb_madd_pallas`) in two entries. The elementwise one (`rcb_madd`,
+`csrc/rcb_madd.cu`): one thread per element runs Alg. 8 (11 multiplies) on
+a projective point and an affine point, and keeps the projective point
+where the affine one's infinity flag (a bool array of the batch shape) is
+set; `RcbGroup.madd` calls it, the setup does not. The fixed-base MSM
+(`rcb_fixed_base`, `csrc/rcb_fixed_base.cu`), as the reference's
+`_fixed_base_rcb` (`ops/msm.py:901`) runs `_madd_kernel` once a window:
+each point's 32 windows in one launch, a chain of mixed adds from the
+identity over the window-table rows its scalar's 8-bit digits pick, read
+in the kernel (one thread a point for G1, the team of lanes of
+`csrc/rcb_team.cuh` for G2). The setup's `fixed_base_msm` calls it once a
+query.
 
 K2, K3 and K4 replace three `_scan_fn` kernels of `ops/pallas_rcb.py`:
 `_scan_prefix_madd_packedf_kernel` (K2, sorted affine leaves packed two
@@ -132,6 +140,62 @@ def rcb_madd_plain(rg, p, q_affine):
     """Plain K6: Alg. 8 and the flag select as torch ops over the plain
     field (the port's `RcbGroup.plain.madd`)."""
     return rg.plain.madd_formula(p, q_affine)
+
+
+# ------------------------------------------- K6, the fixed-base MSM
+FB_WINDOWS = 32  # 8-bit digits of a 256-bit scalar (csrc/rcb_team.cuh kFbWin)
+FB_ROWS = 256  # table rows a window (kFbRows)
+FB_LIMBS = 16  # 16-bit limbs a scalar (kFbLimbs)
+
+
+def _check_fixed_base(rg, X, Y, scalars):
+    shape = (FB_WINDOWS, FB_ROWS, *rg.cf.coord_shape)
+    for name, t in (("X", X), ("Y", Y)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"rcb_fixed_base: table {name} {tuple(t.shape)} != {shape}")
+    if scalars.dim() != 2 or scalars.shape[1] != FB_LIMBS:
+        raise ValueError(f"rcb_fixed_base: scalars {tuple(scalars.shape)} are not "
+                         f"(n, {FB_LIMBS}) limbs")
+
+
+def rcb_fixed_base(rg, X, Y, scalars):
+    """Projective [s_i] base for each row s_i of the canonical scalar limbs
+    (n, 16) int32, from the window tables X, Y (32, 256, *coord_shape) of
+    affine rows X[w][d] = d 2^(8w) base (row 0, the identity, is never
+    read): K6's fixed-base kernel on CUDA, plain on CPU. The same bits as
+    the per-window loop acc = madd(acc, (X[w][d], Y[w][d], d == 0)) from
+    the identity. The tables are repacked once a call into packed words
+    (8192 rows; no flag bit) for the kernel."""
+    if scalars.device.type == "cpu":
+        return rcb_fixed_base_plain(rg, X, Y, scalars)
+    _check_fixed_base(rg, X, Y, scalars)
+    for name, t in (("X", X), ("Y", Y), ("scalars", scalars)):
+        cuda_build.check_tensor(t, f"rcb_fixed_base {name}")
+    n = scalars.shape[0]
+    xw, yw = (pack_limbs(t.reshape(FB_WINDOWS * FB_ROWS, -1)) for t in (X, Y))
+    out = [torch.empty((n, *rg.cf.coord_shape), dtype=torch.int32, device=scalars.device)
+           for _ in range(3)]
+    if n == 0:
+        return tuple(out)
+    rc = cuda_build.lib().zkp_rcb_fixed_base(
+        rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out), xw.data_ptr(),
+        yw.data_ptr(), scalars.data_ptr(), n, cuda_build.stream_ptr(out[0]))
+    cuda_build.COUNTS["rcb_fixed_base"] += 1
+    cuda_build.check(rc, "rcb_fixed_base")
+    return tuple(out)
+
+
+def rcb_fixed_base_plain(rg, X, Y, scalars):
+    """Plain K6 fixed-base: the window loop with torch indexing, each step
+    Alg. 8 and the flag select over the plain field (`madd_formula`)."""
+    _check_fixed_base(rg, X, Y, scalars)
+    rgp = rg.plain
+    sc = scalars.to(torch.int64)
+    acc = rgp.identity((sc.shape[0],))
+    for w in range(FB_WINDOWS):
+        d = (sc[:, w // 2] >> (8 * (w % 2))) & (FB_ROWS - 1)
+        acc = rgp.madd_formula(acc, (X[w][d], Y[w][d], d == 0))
+    return acc
 
 
 # ------------------------------------------------------------ K2 / K3 / K4

@@ -3,8 +3,9 @@
 Port of the reference's `ops/msm.py` `DeviceCurveGroup` for G1 (over Fq)
 and G2 (over Fq2): point/scalar encoding (`:431-536`), `msm` (`:539-586`)
 with the RCB Pippenger `_msm_rcb` (`:741-814`), and the setup's
-`fixed_base_msm` (`:982-1045`, K6 per window as `_fixed_base_rcb`,
-`:901-955`) with its host-built window table (`:1047`).
+`fixed_base_msm` (`:982-1045`; the reference's K6 per window,
+`_fixed_base_rcb` `:901-955`, is one K6 fixed-base launch here) with its
+host-built window table (`:1047`).
 
 Per window the MSM sorts the points by digit, runs K2 over the packed
 affine leaves in that order (every within-block prefix W and block totals
@@ -38,8 +39,8 @@ import torch
 
 from ..host.curves import AffinePoint
 from .cuda_ec import block_totals_add, block_totals_madd, ec_madd
-from .cuda_rcb import (pack_limbs_flag, scan_prefix_add, scan_prefix_madd,
-                       scan_prefix_madd_unpacked, scan_total_add)
+from .cuda_rcb import (pack_limbs_flag, rcb_fixed_base, scan_prefix_add,
+                       scan_prefix_madd, scan_prefix_madd_unpacked, scan_total_add)
 from .ec import (DeviceFq2, ec_add, ec_double, ec_neg, point_infinity, point_select,
                  to_affine)
 from .field import device_field
@@ -508,14 +509,16 @@ class DeviceCurveGroup:
         query to a power of two, at least 8. Padding rows (zero scalars)
         are infinity.
 
-        RCB: each window accumulates with K6 (`rg.madd`) on the gathered
-        table rows (X[w][d], Y[w][d], d == 0), as `_fixed_base_rcb` does
-        through `_wide_madd` (`ops/msm.py:917-925, 953`): the d = 0 row is
-        infinity and leaves the accumulator as it is. The reference selects
-        rows with a one-hot int8 matmul (XLA work, not a kernel); the port
-        gathers. The projective output is normalized once. Jacobian: chunks
-        of _FB_CHUNK scalars through `_fixed_base_impl` (reference
-        `:1035-1036`, `_fixed_base_chunked` `:969-980`)."""
+        RCB: one K6 fixed-base launch (`cuda_rcb.rcb_fixed_base`) runs
+        each point's windows as a chain of mixed adds from the identity over
+        the table rows (X[w][d], Y[w][d]) its digits pick, skipping d = 0
+        (row 0 is infinity), as `_fixed_base_rcb` does window by window
+        through `_wide_madd` (`ops/msm.py:917-925, 953`); the reference
+        selects the rows with a one-hot int8 matmul (XLA work, not a
+        kernel), the kernel reads them through the digits. The projective
+        output is normalized once. Jacobian: chunks of _FB_CHUNK scalars
+        through `_fixed_base_impl` (reference `:1035-1036`,
+        `_fixed_base_chunked` `:969-980`)."""
         n = scalars.shape[0]
         if not self._use_rcb:
             self._check_jacobian()
@@ -523,16 +526,12 @@ class DeviceCurveGroup:
             np2 = _cdiv(n, COL_ALIGN) * COL_ALIGN
         else:
             np2 = max(8, 1 << (n - 1).bit_length())
-        sc = scalars.to(torch.int64)
+        sc = scalars
         if np2 != n:
             sc = torch.cat([sc, sc.new_zeros((np2 - n, sc.shape[1]))])
         if self._use_rcb:
             X, Y, _ = table
-            acc = self.rg.identity((np2,))
-            for w in range(self.nwindows):
-                d = self._digits(sc, w)
-                acc = self.rg.madd(acc, (X[w][d], Y[w][d], d == 0))
-            out = self._normalize_proj(acc)
+            out = self._normalize_proj(rcb_fixed_base(self.rg, X, Y, sc))
         else:
             parts = [self._fixed_base_impl(table, sc[i : i + _FB_CHUNK])
                      for i in range(0, np2, _FB_CHUNK)]

@@ -1,6 +1,7 @@
-"""The team kernels at every shape of a 2^log2 prove, one tree's kernels
-against another's, in one call on the card: K3 and K4 at each level, K2 at
-the prove's window batch and K5 at each of its shapes.
+"""The team kernels at every shape of a 2^log2 prove and the setup's
+fixed-base MSM, one tree's kernels against another's, in one call on the
+card: K3 and K4 at each level, K2 at the prove's window batch, K5 at each
+of its shapes, and K6's fixed-base MSM at the setup's width.
 
     python3 ckb_zkp_tpu_torch/probes/levels.py --parent DIR [--log2 20] [--reps 20]
         [--out OUT]
@@ -15,8 +16,12 @@ tree's `chip_smoke.py`: every (kernel, M, B) of `scan_levels(log2)` for
 at (batch * npad, 32) over npad packed leaves (1% flagged) through the sort
 order of random digits, as the MSM's `_windows` calls it (a tree whose K2
 takes no order is timed as the gather of the sorted leaves and K2, as its
-MSM ran them); `cuda_rcb.rcb_add` at every shape of `k5_shapes(log2)`; G1
-and G2. Each call is timed by CUDA events and by the device time of its
+MSM ran them); `cuda_rcb.rcb_add` at every shape of `k5_shapes(log2)`; the fixed-base
+MSM of 2^log2 scalars (uniform below r's top limb) over random window
+tables of 32 x 256 rows, as `cuda_rcb.rcb_fixed_base` where the tree has it
+and else as the per-window loop it replaced (an int64 copy of the scalars,
+and per window the digits, two table-row gathers and the elementwise K6);
+G1 and G2. Each call is timed by CUDA events and by the device time of its
 kernels in a `torch.profiler` trace (for a launch of a few points, events
 measure mostly the host's launch overhead). Every output of every run must
 be the same bits (a SHA-256 of its limbs), so the two trees' kernels agree
@@ -71,6 +76,22 @@ def device_ms(fn, iters: int) -> float | None:
     return None
 
 
+def window_loop(rg, X, Y, sc):
+    """The setup's fixed-base MSM before K6's fixed-base kernel: from an
+    int64 copy of the scalars sc (n, 16), a window at a time the 8-bit
+    digits d, the table rows X[w][d], Y[w][d] gathered, and the
+    elementwise mixed add `rg.madd` (the elementwise K6 on the card) with
+    the flag d == 0. Projective totals."""
+    import torch
+
+    s64 = sc.to(torch.int64)
+    acc = rg.identity((sc.shape[0],))
+    for w in range(X.shape[0]):
+        d = (s64[:, w // 2] >> (8 * (w % 2))) & 255
+        acc = rg.madd(acc, (X[w][d], Y[w][d], d == 0))
+    return acc
+
+
 def worker(tree: str, shapes: list, reps: int) -> dict:
     """Time each shape with the kernels of `tree` (imported from there)."""
     sys.path.insert(0, tree)
@@ -84,6 +105,7 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
 
     cuda_build.lib()
     team_shape = getattr(cuda_rcb, "team_shape", None)
+    fixed_base = getattr(cuda_rcb, "rcb_fixed_base", None)
     fused = "order" in inspect.signature(cuda_rcb.scan_prefix_madd).parameters
     curve = get_curve("bn254")
     out = []
@@ -109,6 +131,22 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
                     def fn():
                         return cuda_rcb.scan_prefix_madd(rg, xw[order], yw[order], B)
                 teams = M // B
+            elif name == "fixed_base":
+                X, Y = (rand_field(rng, 32 * 256, cs, dg.fq).reshape(32, 256, *cs)
+                        for _ in range(2))
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                sc = torch.randint(0, 1 << 16, (M, 16), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+                sc[:, -1] = torch.randint(0, curve.fr.modulus >> 240, (M,), generator=gen,
+                                          device="cuda", dtype=torch.int32)
+                if fixed_base:
+                    def fn():
+                        return fixed_base(rg, X, Y, sc)
+                else:  # the parent's fixed-base MSM: the per-window loop
+                    def fn():
+                        return window_loop(rg, X, Y, sc)
+                teams = M
             elif name == "rcb_add":
                 P = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
                 Q = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
@@ -134,14 +172,15 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
             n = reps if M < 1 << 20 else max(3, reps // 4)
             row = {"name": name, "group": group, "M": M, "B": B, "sha256": h.hexdigest()[:16],
                    "ms": cuda_ms(fn, n), "device_ms": device_ms(fn, n)}
-            if team_shape and (fused or name not in ("scan_prefix_madd", "rcb_add")):
+            if team_shape and name != "fixed_base" and (
+                    fused or name not in ("scan_prefix_madd", "rcb_add")):
                 lanes, row["block"] = team_shape(rg, teams)
                 row["threads"] = teams * lanes
             out.append(row)
             fn = None
             torch.cuda.empty_cache()
     return {"tree": tree, "build_s": cuda_build.BUILD_INFO.get("seconds"), "fused_k2": fused,
-            "shapes": out}
+            "fixed_base_kernel": fixed_base is not None, "shapes": out}
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -150,7 +189,8 @@ _REGS = re.compile(r"Used (\d+) registers")
 # a kernel's own name in its mangled name: its length, the name, its
 # template arguments (the anonymous namespace's part names the file)
 _KERNEL = re.compile(r"\d+(rcb_team_scan|rcb_team_madd_scan|rcb_team_add|rcb_scan_kernel|"
-                     r"rcb_add_kernel)I(\w+?)EEv")
+                     r"rcb_add_kernel|rcb_team_fixed_base|rcb_fixed_base_kernel|"
+                     r"rcb_madd_kernel)I(\w+?)EEv")
 
 
 def registers(log: str) -> list:
@@ -201,6 +241,7 @@ def main() -> int:
     shapes = [(name, M, B, None) for name, M, B in chip_smoke.scan_levels(args.log2)]
     shapes.append(("scan_prefix_madd", sizes["scan_prefix_madd"], 32, 1 << args.log2))
     shapes += [("rcb_add", n, None, None) for n, _ in chip_smoke.k5_shapes(args.log2)]
+    shapes.append(("fixed_base", sizes["rcb_fixed_base"], 32, None))
     parent = os.path.abspath(args.parent)
     runs = []
     for tree in (parent, REPO, REPO, parent):
@@ -214,7 +255,8 @@ def main() -> int:
             return 1
         runs.append(json.loads(line[0][len("SHAPES "):]))
         print(f"{tree}: built in {runs[-1]['build_s']} s, K2 fused with the order: "
-              f"{runs[-1]['fused_k2']}", flush=True)
+              f"{runs[-1]['fused_k2']}, fixed-base kernel: "
+              f"{runs[-1]['fixed_base_kernel']}", flush=True)
     summary = []
     for i in range(len(runs[0]["shapes"])):
         rows = [r["shapes"][i] for r in runs]

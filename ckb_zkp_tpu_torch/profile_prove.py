@@ -5,12 +5,14 @@
 
 Runs the port's setup for a (2^log2 - 2)-constraint square chain, one
 warm-up prove, `reps` timed proves (median and quartiles of the wall
-clock, each ending in a synchronize; the device memory held before and
-after them), then one prove under torch.profiler: the device's busy time
-(sum of kernel self times), its idle share of the wall clock, the
-launches and device time of torch's gather kernels (names holding
-"gather"), and the 40 kernels with the most device time. With `--setup` the timed and
-profiled runs are setups instead (no prove). `--engine jacobian` runs
+clock, each ending in a synchronize; the largest peak of device memory
+among them; the device memory held before and after them), then one prove
+under torch.profiler: the device's busy time (sum of kernel self times),
+its idle share of the wall clock, the launches and device time of torch's
+row-read kernels (names holding "gather" or "index": the gathers and
+indexing of table or leaf rows), each such kernel by name, and the 40
+kernels with the most device time. With `--setup` the timed and profiled
+runs are setups instead (no prove). `--engine jacobian` runs
 setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
 card's device groups).
 Prints the card's name and power limit beside every number. Needs a CUDA
@@ -42,19 +44,21 @@ def _card() -> str:
 
 
 def _timed(run, reps: int, card: str, what: str, log2: int) -> None:
-    walls, stages = [], []
+    walls, stages, peak = [], [], 0
     for _ in range(reps):
         st: dict = {}
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run(st)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
         stages.append(st)
     q = statistics.quantiles(walls, n=4) if len(walls) > 1 else [walls[0]] * 3
     print(json.dumps({f"{what}_s": {"n": len(walls), "median": statistics.median(walls),
                                     "q1": q[0], "q3": q[2], "min": min(walls),
                                     "max": max(walls), "all": walls},
-                      "card": card, "log2": log2}))
+                      "peak_device_memory_bytes": peak, "card": card, "log2": log2}))
     med = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
     print(json.dumps({"stage_median_s": med, "card": card}))
 
@@ -74,12 +78,14 @@ def _profiled(run, card: str) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
-    gathers = [v for n, v in by_name.items() if "gather" in n]
+    reads = {n: v for n, v in by_name.items() if "gather" in n or "index" in n}
     print(json.dumps({"profiled_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1 - busy / wall,
                       "kernel_launches": len(kernels),
-                      "gather_launches": sum(n for n, _ in gathers),
-                      "gather_ms": sum(ms for _, ms in gathers), "card": card}))
+                      "row_read_launches": sum(n for n, _ in reads.values()),
+                      "row_read_ms": sum(ms for _, ms in reads.values()), "card": card}))
+    for name, (n, ms) in sorted(reads.items(), key=lambda kv: -kv[1][1]):
+        print(f"row read: {ms:10.3f} ms {n:6d} x  {name[:110]}")
     for name, (n, ms) in top:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
 

@@ -12,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RCB_PROVE = {"mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
              "rcb_add"}
 JAC_PROVE = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
-KERNELS = RCB_PROVE | JAC_PROVE | {"rcb_madd", "ec_madd"}
+KERNELS = RCB_PROVE | JAC_PROVE | {"rcb_madd", "rcb_fixed_base", "ec_madd"}
 
 
 @pytest.fixture
@@ -85,13 +85,36 @@ def test_team_kernels_every_shape_compared(smoke):
     assert cuda_rcb.team_shape(rg2, 2048)[0] == 32 and cuda_rcb.team_shape(rg2, 2049)[0] == 8
 
 
+def test_fixed_base_every_shape_compared(smoke):
+    """K6's fixed-base kernel (G1, G2) bit for bit against its plain
+    version at 1, 7, 2047, 2048 and 2049 points with edge scalars and at a
+    2^14 setup's width, where it also equals the per-window loop it
+    replaced (`fixed_base_checks`)."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append(name)
+
+    rows, loop = smoke.fixed_base_checks(record, np.random.default_rng(3),
+                                         get_curve("bn254"), 14)
+    assert [(r["group"], r["n"]) for r in rows] == [("g1", 1 << 14), ("g2", 1 << 14)]
+    assert seen == ["rcb_fixed_base"] * 2 * (len(smoke.FB_EDGE) + 1)
+    assert loop["rcb_madd"] == 2 * 32
+    assert all(r["bound_ms"] > 0 and r["ms"] > 0 and r["loop_ms"] > 0 for r in rows)
+
+
 def test_k6_device_setup_equals_host_mode(smoke):
     smoke.phase_setup_check(10)
 
 
 def test_small_setup_and_prove_launch_every_kernel(smoke):
     run = smoke.phase_slice(torch.cuda.get_device_name(0), 13)
-    assert run["setup_launches"]["rcb_madd"] > 0
+    assert run["setup_launches"]["rcb_fixed_base"] > 0
     assert all(run["prove_launches"][k] > 0 for k in RCB_PROVE)
 
 
