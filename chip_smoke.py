@@ -23,7 +23,13 @@ counts, with each level's ms, threads and bound), each beside its
 bound; the Jacobian
 engine's K8, K9a, K9b and K9c the same way (edge cases P = Q, P = -Q,
 identity on each side and flagged leaves against the host group, then the
-shapes of its 2^log2 setup and prove); and the port's MSM on both engines
+shapes of its 2^log2 setup and prove: K9a's fixed-base kernel at the edge
+point counts with edge scalars and at the setup's width, where it must also
+equal the per-window loop it replaced after normalization,
+`jacobian_fixed_base_checks`; K8 at every shape of the prove, `k8_shapes`,
+held against the one-thread K8 too, and its chain entry at the window
+folds' shapes against the loop of K8 launches it replaced,
+`jacobian_shape_checks`); and the port's MSM on both engines
 against the host-int MSM on a small input; (4) a 2^14 setup check: the
 device instance map against the host ints, and the device-branch queries
 against the host-mode queries point for point; (5) the slice: the device
@@ -36,11 +42,16 @@ that the timed prove leaves no device memory behind; (6) the same setup and prov
 (`_use_rcb = False` on the two cached device groups, restored after):
 every query equal to the RCB setup's limb for limb on the rows both hold
 (the others at infinity), the proof equal to the RCB proof for the same
-(r, s), the verifier's verdicts, and K9a launched by that setup and K8,
-K9b and K9c by that prove; (7) the probes (`ckb_zkp_tpu_torch/probes/`):
-K2a and K2b (G1, G2) and the scan probes' kernels P-tot, P-prepk and
-P-chain (G1, every K and block size) against their plain versions at edge
-shapes (the probes' own checks) and at 2^(log2 + 1); the g-major P-tot and
+(r, s), the verifier's verdicts, K9a's fixed-base kernel launched by that
+setup once a query (5 times) and the elementwise K9a never, and K8, its
+chain, K9b and K9c by that prove, K8 and the chain no more often than
+`k8_shapes` counts; then a G1 and a G2 Jacobian MSM of 2^14 points, the
+widest that still runs the elementwise K9a (`_prefix_boundary_leaf`'s
+leaf branch, `leaf_shapes`), against the host ints, with that K9a's
+launches counted from those two MSMs alone (`phase_jacobian_leaf`); (7)
+the probes (`ckb_zkp_tpu_torch/probes/`): K2a and K2b (G1, G2) and the
+scan probes' kernels P-tot, P-prepk and P-chain (G1, every K and block
+size) against their plain versions at edge shapes (the probes' own checks) and at 2^(log2 + 1); the g-major P-tot and
 P-prepk (P12, P13) and P-tot on the tensor-core Montgomery reduction
 (P18 g-major, P19), at every block size, at edge shapes and at
 2^(log2 + 1), P18 and P19 also against P-tot's kernel; the mxu probe's
@@ -53,7 +64,8 @@ arithmetic, per step or per tile) and the dma probe's P20-P22 (a ^ b
 under three blockings) at edge shapes and at 2^(log2 + 1), P7 also
 against P-tot's kernel and P8 and P11 against P-prepk's; then the window,
 scan, mxu, grid and dma probes, which must launch all twenty-one of the
-phase's kernels (32 kernels in the table in all: K6 has two entries).
+phase's kernels (34 kernels in the table in all: K6, K8 and K9a have two
+entries each).
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
@@ -104,8 +116,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "rcb_add": ("rcb_team.cuh", "ckb_zkp_tpu/ops/pallas_rcb.py:193"),
     "rcb_madd": ("rcb_madd.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
     "rcb_fixed_base": ("rcb_fixed_base.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:204"),
-    "ec_add": ("ec_add.cu", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
+    "ec_add": ("ec_team.cuh", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
+    "ec_add_chain": ("ec_team.cuh", "ckb_zkp_tpu/ops/pallas_ec.py:247"),
     "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
+    "ec_fixed_base": ("ec_fixed_base.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
     "ec_block_totals_madd": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:271"),
     "ec_block_totals_add": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:290"),
     "scan_prefix_madd_unpacked": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:275"),
@@ -132,11 +146,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 # the run whose launches each kernel's row reports
 SETUP_KERNELS = {"rcb_fixed_base"}  # the RCB setup
-# the per-window loop that the setup's fixed-base kernel replaced (digits,
-# gathers, the elementwise K6 a window), run by `fixed_base_checks`
+# the per-window loop that the RCB setup's fixed-base kernel replaced
+# (digits, gathers, the elementwise K6 a window), run by `fixed_base_checks`
 LOOP_KERNELS = {"rcb_madd"}
-JAC_SETUP_KERNELS = {"ec_madd"}  # the Jacobian engine's setup
-JAC_PROVE_KERNELS = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
+JAC_SETUP_KERNELS = {"ec_fixed_base"}  # the Jacobian engine's setup
+# the Jacobian MSM below 2^15 points (`_prefix_boundary_leaf`'s leaf
+# branch, `leaf_shapes`), run by `phase_jacobian_leaf`
+JAC_LEAF_KERNELS = {"ec_madd"}
+JAC_PROVE_KERNELS = {"ec_add", "ec_add_chain", "ec_block_totals_madd",
+                     "ec_block_totals_add"}
 PROBE_KERNELS = {"scan_prefix_madd_unpacked", "scan_prefix_madd_packed", "probe_madd_totals",
                  "probe_madd_prefix_packed", "probe_chain_mul", "probe_gmajor_totals",
                  "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
@@ -188,7 +206,9 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     The Jacobian engine (8-bit windows, `jb` of them per batch): K9b sums
     jb * npad sorted leaves, K9c their jb * npad / 32 block totals, K8's
     widest launches are the within-block prefixes of jb * nb queries of 32
-    rows each, and K9a runs per window on chunks of min(npad, _FB_CHUNK)."""
+    rows each (every K8 shape: `k8_shapes`), and K9a's fixed-base kernel
+    runs once a query at npad. The elementwise K9a, `ec_madd`, runs in the
+    Jacobian MSM below 2^15 points, at `leaf_shapes`' width."""
     from ckb_zkp_tpu_torch.ops import msm
 
     npad = 1 << log2
@@ -200,9 +220,29 @@ def path_shapes(log2: int, scalar_bits: int) -> dict:
     jnb = 1 << msm._FIXED_BASE_BITS
     return {"mont_mul": npad, "scan_prefix_madd": batch * npad,
             "rcb_add": batch * nb, "rcb_madd": npad, "rcb_fixed_base": npad,
-            "ec_add": jb * jnb * msm._SCAN_B, "ec_madd": min(npad, msm._FB_CHUNK),
+            "ec_add": jb * jnb * msm._SCAN_B, "ec_madd": leaf_shapes()[1],
+            "ec_fixed_base": npad,
             "ec_block_totals_madd": jb * npad,
             "ec_block_totals_add": jb * npad // msm._SCAN_B}
+
+
+def leaf_shapes(scalar_bits: int = 256) -> tuple[int, int, int]:
+    """The widest Jacobian MSM that runs the elementwise K9a (`ec_madd`),
+    from `ops/msm.py`'s own constants: (points, elements a launch,
+    launches a MSM). `_prefix_boundary_leaf` takes the leaf branch where
+    the point count (a power of two) is not a multiple of _SCAN_B *
+    _LEAF_GROUPS (2^15); above `prefix_at_indices`' Hillis-Steele width
+    (1024 leaves) that branch sums each block of _SCAN_B leaves with
+    _SCAN_B K9a launches over the window batch's k rows of n / _SCAN_B
+    blocks. At 2^14 points: one batch of 32 windows, 32 launches of 16384
+    elements."""
+    from ckb_zkp_tpu_torch.ops import msm
+
+    B = msm._SCAN_B
+    n = B * msm._LEAF_GROUPS // 2
+    nwin = scalar_bits // msm._FIXED_BASE_BITS
+    k = max(1, min(nwin, msm._WINDOW_BATCH_POINTS // n))
+    return n, k * (n // B), B * -(-nwin // k)
 
 
 def scan_levels(log2: int, scalar_bits: int = 256, batch: int | None = None) -> list:
@@ -269,6 +309,63 @@ def k5_shapes(log2: int, scalar_bits: int = 256) -> list:
         add(k, c + 2)
     add(1, nwin * (c + 1))
     return sorted(counts.items(), key=lambda kv: -kv[0])
+
+
+def k8_shapes(log2: int, scalar_bits: int = 256) -> tuple[list, list]:
+    """K8's launches in one MSM of the 2^log2 Jacobian prove, from
+    `ops/msm.py`'s own constants (the tiling thresholds scaled as
+    `jacobian_engine` scales them below 2^20): ([(points, launches)] of the
+    elementwise add, widest first; [(points, launches)] of the chain). Per
+    window batch of k windows, `_prefix_boundary_leaf` runs K9b, then
+    `_combine_blocks`: the prefix of the block totals (`_prefix_boundary_jac`:
+    a Hillis-Steele scan of ceil(log2 G) adds at k * G points where G <=
+    _JAC_TOP, else a K9c level and the same combine one level up), the
+    within-block rows (a Hillis-Steele scan over 32 rows, 5 adds at k * nb
+    * 32 points) and one add at k * nb; `_sum_dim1` halves the nb - 1
+    bucket prefixes (one add at k * ceil(w / 2) a halving); then one chain
+    at k points (`_window_sums`), and one chain at one point a MSM (the
+    fold). At 2^20 (16 batches of 2 windows): adds (16384, 160), (2048,
+    160), (512, 32), (256, 16), (128, 16) ... (2, 16); chains (2, 16), (1,
+    1)."""
+    from ckb_zkp_tpu_torch.ops import msm
+
+    npad = max(8, 1 << log2)
+    shift = max(0, 20 - log2)
+    lg = max(1, msm._LEAF_GROUPS >> shift)
+    top = max(1, msm._JAC_TOP >> shift)
+    B, c = msm._SCAN_B, msm._FIXED_BASE_BITS
+    nwin, nb = scalar_bits // c, 1 << c
+    batch = max(1, min(nwin, msm._WINDOW_BATCH_POINTS // npad))
+    adds: dict = {}
+    chains: dict = {}
+
+    def add(d, n, times):
+        if times:
+            d[n] = d.get(n, 0) + times
+
+    def combine(k, G):  # _combine_blocks over k rows of G block totals
+        if G <= top:
+            add(adds, k * G, (G - 1).bit_length())
+        else:
+            combine(k, -(-G // (B * lg)) * lg)
+            add(adds, k * nb * B, (B - 1).bit_length())
+            add(adds, k * nb, 1)
+
+    if npad % (B * lg):
+        raise ValueError(f"k8_shapes: {npad} leaves take the leaf branch, not K9b")
+    for w0 in range(0, nwin, batch):
+        k = min(batch, nwin - w0)
+        combine(k, npad // B)
+        add(adds, k * nb * B, (B - 1).bit_length())
+        add(adds, k * nb, 1)
+        w = nb - 1
+        while w > 1:
+            w = -(-w // 2)
+            add(adds, k * w, 1)
+        add(chains, k, 1)
+    add(chains, 1, 1)
+    return (sorted(adds.items(), key=lambda kv: -kv[0]),
+            sorted(chains.items(), key=lambda kv: -kv[0]))
 
 
 # K2 and K5 shapes besides the prove's: K2 with the leaves in order and
@@ -543,6 +640,241 @@ def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
     return rows, {"rcb_madd": loop_launches}
 
 
+def jacobian_fixed_base_checks(record, rng, curve, log2: int) -> list:
+    """K9a's fixed-base kernel (G1, G2) against its plain version, bit for
+    bit, on random window tables: at the point counts of FB_EDGE with the
+    edge scalars of `fixed_base_scalars`, then at the setup's width
+    (`path_shapes(log2)`, plain in chunks of points), where its totals,
+    normalized, must also equal the normalized totals of the per-window
+    loop that it replaced (the digits, two table-row gathers and the
+    elementwise K9a a window, on the card). Each width row: the kernel's,
+    the plain version's and the loop's ms (events; kernel and loop also by
+    device time), the loop's elementwise K9a launches, the bound for the
+    live steps this run's digits need (11 field products a step, 33 over
+    Fq2) and the bytes (scalars, the tables once, the totals), the
+    registers and spills from the build log. Returns the rows."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_ec, cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+    from ckb_zkp_tpu_torch.probes.levels import jacobian_window_loop as loop
+    from ckb_zkp_tpu_torch.probes.levels import registers
+
+    log = os.path.join(cuda_build.BUILD_DIR, "build.log")
+    regs = registers(open(log).read()) if os.path.exists(log) else []
+    r = curve.fr.modulus
+    n_full = path_shapes(log2, 256)["ec_fixed_base"]
+    rows = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        cf, cs, ext = dg.cf, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        rows_tab = cuda_rcb.FB_WINDOWS * cuda_rcb.FB_ROWS
+        X, Y = (rand_field(rng, rows_tab, cs, dg.fq).reshape(
+            cuda_rcb.FB_WINDOWS, cuda_rcb.FB_ROWS, *cs) for _ in range(2))
+        for n in FB_EDGE + (n_full,):
+            sc = fixed_base_scalars(rng, n, r)
+            main = n == n_full
+
+            def fn():
+                return cuda_ec.ec_fixed_base(cf, X, Y, sc)
+
+            def plain(cf_, s):
+                return cuda_ec.ec_fixed_base_plain(cf_, X, Y, s[0])
+
+            pl, plain_ms = timed_once(lambda: chunked_plain(plain, cf, (sc,)))
+            out = fn()
+            err = max_abs_err(out, pl)
+            del pl
+            what = f"{group} n={n}, {cuda_rcb.FB_WINDOWS} windows"
+            if not main:
+                record("ec_fixed_base", err, cuda_ms(fn, 5), plain_ms, what)
+                continue
+            before = cuda_build.COUNTS["ec_madd"]
+            lp = loop(cf, X, Y, sc)
+            loop_launches = cuda_build.COUNTS["ec_madd"] - before
+            if max_abs_err(dg._normalize(out), dg._normalize(lp)):
+                raise AssertionError(f"ec_fixed_base != the per-window loop after "
+                                     f"normalization ({group})")
+            del out, lp
+            live = sum(int((((sc >> sh) & 0xFF) != 0).sum()) for sh in (0, 8))
+            work = (n * cuda_rcb.FB_LIMBS * 4 + 2 * rows_tab * eb + 3 * n * eb,
+                    live * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL)
+            ms = cuda_ms(fn, 5)
+            loop_ms = cuda_ms(lambda: loop(cf, X, Y, sc), 2)
+            kern = f"ec_fixed_base_kernel<8,{ext}>"
+            reg = [x for x in regs if x[0] == kern]
+            record("ec_fixed_base", err, ms, plain_ms,
+                   f"{what}, {live} live steps, normalized equal to the per-window loop; "
+                   f"main path (setup); the loop {loop_ms:.6f} ms", work)
+            rows.append({"group": group, "n": n, "windows": cuda_rcb.FB_WINDOWS,
+                         "live_steps": live, "ms": ms, "device_ms": device_ms(fn, 3),
+                         "plain_ms": plain_ms, "loop_ms": loop_ms,
+                         "loop_launches": loop_launches,
+                         "loop_device_ms": device_ms(lambda: loop(cf, X, Y, sc), 2),
+                         "kernel": kern, "registers": reg[0][1] if reg else None,
+                         "spill_bytes": reg[0][2] if reg else None, **bound(*work)})
+            torch.cuda.empty_cache()
+        del X, Y
+    return rows
+
+
+def _edge_rows(cf, P, Q) -> None:
+    """Rows 0-3 of (P, Q) in place, as far as they reach: Q = P (the
+    doubling), P infinite, Q infinite, Q = -P (a sum with Z = 0)."""
+    n = P[0].shape[0]
+    for c in range(3):
+        Q[c][0] = P[c][0]
+    if n > 1:
+        P[2][1] = 0
+    if n > 2:
+        Q[2][2] = 0
+    if n > 3:
+        Q[0][3], Q[1][3], Q[2][3] = P[0][3], cf.neg(P[1][3]), P[2][3]
+
+
+def _chain_operands(cf, rng, dg, k: int, dbl: list, from_infinity: bool):
+    """init (k,) and addends (R, k) for a chain of K8 steps: random points,
+    the fold's from infinity. Outside the fold, point 0's first addend is
+    the negation of its accumulator after the first doublings (P == -Q,
+    then an infinite accumulator takes the next addend) and point 1's
+    first addend that accumulator itself (P == Q), computed by the plain
+    version."""
+    from ckb_zkp_tpu_torch.ops import cuda_ec, ec
+
+    cs = cf.coord_shape
+    R = len(dbl)
+    init = (ec.point_infinity(cf, (k,)) if from_infinity
+            else tuple(rand_field(rng, k, cs, dg.fq) for _ in range(3)))
+    add = tuple(rand_field(rng, R * k, cs, dg.fq).reshape(R, k, *cs) for _ in range(3))
+    if not from_infinity:
+        acc = tuple(c.clone() for c in init)
+        for _ in range(dbl[0]):
+            acc = cuda_ec.ec_add_plain(cf, acc, acc)
+        neg = ec.ec_neg(cf.plain, acc)
+        for c in range(3):
+            add[c][0, 0] = neg[c][0]
+            if k > 1:
+                add[c][0, 1] = acc[c][1]
+    return init, add
+
+
+def _chain_work(cf, init, add, dbl, eb: int) -> tuple:
+    """(bytes, IMADs) of a chain: its operands and totals once; 7 field
+    products a doubling of a finite accumulator and 16 an add of two
+    finite points (x3 over Fq2), counted on the plain version's run."""
+    from ckb_zkp_tpu_torch.ops import cuda_ec
+
+    k = init[0].shape[0]
+    acc, prods = tuple(init), 0
+    for r, d in enumerate(dbl):
+        q = tuple(a[r] for a in add)
+        prods += 7 * d * int((~cf.is_zero(acc[2])).sum())
+        for _ in range(d):
+            acc = cuda_ec.ec_add_plain(cf, acc, acc)
+        prods += 16 * int((~cf.is_zero(acc[2]) & ~cf.is_zero(q[2])).sum())
+        acc = cuda_ec.ec_add_plain(cf, acc, q)
+    return ((6 + 3 * len(dbl)) * k * eb,
+            prods * (3 if cf.ext == 2 else 1) * IMAD_PER_FQ_MUL)
+
+
+def jacobian_shape_checks(record, rng, curve, log2: int) -> list:
+    """K8 (G1, G2) at every shape of the 2^log2 Jacobian prove
+    (`k8_shapes`), with rows 0-3 the doubling, infinity on either side and
+    P == -Q (`_edge_rows`), against its plain version and the one-thread
+    K8, bit for bit; then K8's chain at the shapes the prove gives it
+    (`_window_sums`' k points and c, 0 doublings; the fold's one point and
+    W rounds of c from infinity), with infinite, P ==
+    -Q and P == Q accumulators (`_chain_operands`), against its plain
+    version and against the loop of K8 launches it replaced. Each row: ms
+    by events and device ms (`device_ms`), the one-thread K8's device ms,
+    lanes a point (`cuda_ec.ec_team_lanes`), threads, bound and launches in
+    one prove. Returns one record a shape."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_ec
+    from ckb_zkp_tpu_torch.ops.msm import _FIXED_BASE_BITS, device_group
+
+    adds, chains = k8_shapes(log2)
+    c, nwin = _FIXED_BASE_BITS, 256 // _FIXED_BASE_BITS
+    rows = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        cf, cs, ext = dg.cf, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        msms = 4 if group == "g1" else 1  # MSMs of each group in a prove
+        for n, t in adds:
+            P = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+            Q = tuple(rand_field(rng, n, cs, dg.fq) for _ in range(3))
+            _edge_rows(cf, P, Q)
+
+            def fn():
+                return cuda_ec.ec_add(cf, P, Q)
+
+            def thread():
+                return cuda_ec.ec_add(cf, P, Q, thread=True)
+
+            pl, plain_ms = timed_once(lambda: chunked_plain(cuda_ec.ec_add_plain, cf, P, Q))
+            out = fn()
+            err = max_abs_err(out, pl)
+            if max_abs_err(out, thread()):
+                raise AssertionError(f"K8's team != the one-thread K8 ({group}, n={n})")
+            del pl, out
+            lanes = cuda_ec.ec_team_lanes(cf, n)
+            work = (9 * n * eb, n * fq_muls("jadd", ext) * IMAD_PER_FQ_MUL)
+            reps = 10 if n >= 1 << 14 else 20
+            ms = cuda_ms(fn, reps)
+            dev = device_ms(fn, reps)
+            record("ec_add", err, ms, plain_ms,
+                   f"{group} n={n}, {n * lanes} threads ({lanes} a point), device {dev} ms; "
+                   f"main path (prove)", work)
+            rows.append({"name": "ec_add", "group": group, "points": n,
+                         "launches_prove": msms * t, "lanes": lanes, "threads": n * lanes,
+                         "ms": ms, "device_ms": dev,
+                         "thread_device_ms": device_ms(thread, reps), "plain_ms": plain_ms,
+                         **bound(*work)})
+            del P, Q
+        for k, t in chains:
+            fold = k == 1
+            dbl = [c] * nwin if fold else [c, 0]
+            init, add = _chain_operands(cf, rng, dg, k, dbl, fold)
+
+            def fn():
+                return cuda_ec.ec_add_chain(cf, init, add, dbl)
+
+            def loop():  # the K8 launches it replaced
+                acc = init
+                for r, d in enumerate(dbl):
+                    for _ in range(d):
+                        acc = cuda_ec.ec_add(cf, acc, acc)
+                    acc = cuda_ec.ec_add(cf, acc, tuple(a[r] for a in add))
+                return acc
+
+            pl, plain_ms = timed_once(lambda: cuda_ec.ec_add_chain_plain(cf, init, add, dbl))
+            out = fn()
+            err = max_abs_err(out, pl)
+            if max_abs_err(out, loop()):
+                raise AssertionError(f"K8's chain != the loop of K8 launches ({group}, k={k})")
+            del pl, out
+            lanes = cuda_ec.ec_team_lanes(cf, k)
+            work = _chain_work(cf, init, add, dbl, eb)
+            ms = cuda_ms(fn, 5)
+            dev = device_ms(fn, 5)
+            what = "the fold" if fold else "_window_sums"
+            record("ec_add_chain", err, ms, plain_ms,
+                   f"{group} k={k}, {len(dbl)} rounds ({what}), {k * lanes} threads, device "
+                   f"{dev} ms; main path (prove)", work)
+            rows.append({"name": "ec_add_chain", "group": group, "points": k,
+                         "rounds": len(dbl), "doublings": sum(dbl),
+                         "launches_prove": msms * t, "lanes": lanes, "threads": k * lanes,
+                         "ms": ms, "device_ms": dev,
+                         "loop_device_ms": device_ms(loop, 3),
+                         "loop_launches": sum(dbl) + len(dbl), "plain_ms": plain_ms,
+                         **bound(*work)})
+        torch.cuda.empty_cache()
+    return rows
+
+
 class Recorder:
     """Kernel-vs-plain comparisons. The kernel table keeps the times and
     the bound of each kernel's first comparison at a main-path shape."""
@@ -683,6 +1015,10 @@ def phase_kernels(results: dict, log2: int) -> list:
     torch.cuda.empty_cache()
     jacobian_kernels(record, rng, curve, sizes)
     torch.cuda.empty_cache()
+    jac_fixed = jacobian_fixed_base_checks(record, rng, curve, log2)
+    torch.cuda.empty_cache()
+    jac_shapes = jacobian_shape_checks(record, rng, curve, log2)
+    torch.cuda.empty_cache()
 
     # the port's MSM on both engines against the host-int MSM, small input
     prng = random.Random(SEED)
@@ -702,7 +1038,7 @@ def phase_kernels(results: dict, log2: int) -> list:
             if got != want:
                 raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
         log(f"msm {group} n={n}: both engines equal to the host-int MSM")
-    return levels, team, fixed, loop_launches
+    return levels, team, fixed, loop_launches, jac_fixed, jac_shapes
 
 
 @contextlib.contextmanager
@@ -734,7 +1070,10 @@ def jacobian_kernels(record, rng, curve, sizes) -> None:
     edge cases (P = Q, P = -Q, identity on each side, flagged leaves, with
     general-Z accumulators) also against the host group; the scans at
     N = 2^15 (B = 32, repeated leaves for the doubling branch) and a tail
-    B = 5; then at the shapes of the Jacobian setup and prove."""
+    B = 5; then at the shapes of the Jacobian prove (K8's widest, K9b,
+    K9c) and the elementwise K9a at the width the leaf branch of a 2^14
+    Jacobian MSM gives it (`leaf_shapes`; K8 at every shape:
+    `jacobian_shape_checks`)."""
     import torch
 
     from ckb_zkp_tpu_torch.ops import cuda_ec, ec
@@ -818,7 +1157,8 @@ def jacobian_kernels(record, rng, curve, sizes) -> None:
             lambda: chunked_plain(cuda_ec.ec_madd_plain, cf, P, leaves))
         record("ec_madd", max_abs_err(cuda_ec.ec_madd(cf, P, leaves), pl),
                cuda_ms(lambda: cuda_ec.ec_madd(cf, P, leaves), 5), plain_ms,
-               f"{group} n={n}, 1/256 flagged; main path (setup)",
+               f"{group} n={n}, 1/256 flagged; main path (a 2^14 Jacobian MSM's leaf "
+               "branch)",
                (8 * n * eb + n, live * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL))
         del P, Q, leaves, pl
         N = sizes["ec_block_totals_madd"]
@@ -941,7 +1281,7 @@ def phase_slice(card: str, log2: int) -> dict:
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the timed prove: {json.dumps(launches)}")
     rcb_prove = (set(KERNELS) - SETUP_KERNELS - LOOP_KERNELS - JAC_SETUP_KERNELS
-                 - JAC_PROVE_KERNELS - PROBE_KERNELS)
+                 - JAC_PROVE_KERNELS - JAC_LEAF_KERNELS - PROBE_KERNELS)
     missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove: {missing}")
@@ -992,8 +1332,10 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
         setup_launches = dict(cuda_build.COUNTS)
         log(f"jacobian setup: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
         log(f"kernel launches in the jacobian setup: {json.dumps(setup_launches)}")
-        if setup_launches["ec_madd"] <= 0:
-            raise AssertionError("the Jacobian setup did not launch K9a (ec_madd)")
+        if setup_launches["ec_fixed_base"] != 5 or setup_launches["ec_madd"]:
+            raise AssertionError("the Jacobian setup did not launch K9a's fixed-base kernel "
+                                 "once a query (5 times) and the elementwise K9a (ec_madd) "
+                                 "no time")
         for name in QUERIES:
             d, h = getattr(params, name), getattr(rcb, name)
             n = min(d[0].shape[0], h[0].shape[0])
@@ -1018,12 +1360,70 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
     missing = [k for k in sorted(JAC_PROVE_KERNELS) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the Jacobian prove: {missing}")
+    adds, chains = k8_shapes(log2)
+    most = {"ec_add": 5 * sum(t for _, t in adds), "ec_add_chain": 5 * sum(t for _, t in chains)}
+    log(f"jacobian prove: K8 launches {launches['ec_add']} (at most {most['ec_add']}), "
+        f"chain launches {launches['ec_add_chain']} (at most {most['ec_add_chain']})")
+    over = [k for k, m in most.items() if launches[k] > m]
+    if over:
+        raise AssertionError(f"the Jacobian prove launched more than k8_shapes allows: {over}")
     want = run["proof"]
     if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
         raise AssertionError("the Jacobian engine's proof != the RCB engine's")
     log("jacobian prove: the proof equals the RCB engine's for the same (r, s)")
     check_verdicts(curve, params, shape, proof)
     return {"setup_launches": setup_launches, "prove_launches": launches}
+
+
+def phase_jacobian_leaf(card: str) -> dict:
+    """The Jacobian MSM that still runs the elementwise K9a: G1 and G2 at
+    `leaf_shapes`' width through the device group's `msm`, on the Jacobian
+    engine at its 2^20 thresholds, each held against the host ints. The
+    points repeat 16 host points (one at infinity) under random scalars,
+    so the host sum is 16 scalar multiples. The counts are set to 0 just
+    before the two MSMs and read just after: `ec_madd` must run exactly as
+    often as `leaf_shapes` counts."""
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    curve = get_curve("bn254")
+    r = curve.fr.modulus
+    n, _, per_msm = leaf_shapes()
+    prng = random.Random(SEED + 1)
+    runs = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        host = dg.host_group
+        gen = curve.g1_gen if group == "g1" else curve.g2_gen
+        base = [host.mul(gen, prng.randrange(1, r)) for _ in range(15)] + [host.infinity]
+        sc = [prng.randrange(r) for _ in range(n)]
+        sc[5] = 0
+        want = host.infinity
+        for j, b in enumerate(base):
+            want = host.add(want, host.mul(b, sum(sc[j::16]) % r))
+        idx = torch.arange(n, device=DEVICE) % 16
+        P = tuple(c[idx] for c in dg.encode_points(base))
+        runs.append((group, dg, P, dg.encode_scalars(sc), want))
+    with jacobian_engine(curve):
+        torch.cuda.synchronize()
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        outs = [dg.msm(P, S) for _, dg, P, S, _ in runs]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_build.COUNTS)
+    for (group, dg, _, _, want), out in zip(runs, outs):
+        if dg.decode_point(out) != want:
+            raise AssertionError(f"Jacobian MSM at {n} points != host ints ({group})")
+    log(f"jacobian msm at {n} points (the leaf branch), G1 and G2: {secs:.6f} s, equal to "
+        f"the host ints; launches {json.dumps(launches)} [{card}]")
+    if launches["ec_madd"] != 2 * per_msm:
+        raise AssertionError(f"the {n}-point Jacobian MSMs launched the elementwise K9a "
+                             f"{launches['ec_madd']} times, not {2 * per_msm}")
+    return launches
 
 
 def phase_probes(results: dict, log2: int) -> dict:
@@ -1350,16 +1750,22 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    levels, team, fixed, loop_launches = phase_kernels(results, args.log2)
+    levels, team, fixed, loop_launches, jac_fixed, jac_shapes = phase_kernels(
+        results, args.log2)
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
     log(f"fixed base (K6 at the setup's width 2^{args.log2}, {card}): {json.dumps(fixed)}")
+    log(f"jacobian fixed base (K9a at the setup's width 2^{args.log2}, {card}): "
+        f"{json.dumps(jac_fixed)}")
+    log(f"jacobian shapes (K8 and its chain at the prove's shapes, 2^{args.log2}, {card}): "
+        f"{json.dumps(jac_shapes)}")
     t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
     t2 = time.perf_counter()
     run = phase_slice(card, args.log2)
     t3 = time.perf_counter()
     jac = phase_jacobian(card, run, args.log2)
+    leaf = phase_jacobian_leaf(card)
     t4 = time.perf_counter()
     probes = phase_probes(results, args.log2 + 1)
     t5 = time.perf_counter()
@@ -1372,6 +1778,7 @@ def main() -> int:
                     else loop_launches if name in LOOP_KERNELS
                     else run["setup_launches"] if name in SETUP_KERNELS
                     else jac["setup_launches"] if name in JAC_SETUP_KERNELS
+                    else leaf if name in JAC_LEAF_KERNELS
                     else jac["prove_launches"] if name in JAC_PROVE_KERNELS
                     else run["prove_launches"])[name]
         if launches <= 0:

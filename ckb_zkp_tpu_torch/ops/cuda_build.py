@@ -29,8 +29,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("rcb_team_scan.cu", "rcb_fixed_base.cu", "rcb_scan.cu", "ec_scan.cu",
            "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu", "probe_dma.cu", "ec_add.cu",
-           "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "ec_jac.cuh", "mont_tc.cuh", "probe.cuh")
+           "ec_fixed_base.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
+HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "ec_jac.cuh", "ec_team.cuh", "mont_tc.cuh",
+           "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -42,7 +43,9 @@ COUNTS = {
     "rcb_madd": 0,  # K6, elementwise
     "rcb_fixed_base": 0,  # K6, the fixed-base MSM
     "ec_add": 0,  # K8
-    "ec_madd": 0,  # K9a
+    "ec_add_chain": 0,  # K8, the window folds' chain
+    "ec_madd": 0,  # K9a, elementwise
+    "ec_fixed_base": 0,  # K9a, the fixed-base MSM
     "ec_block_totals_madd": 0,  # K9b
     "ec_block_totals_add": 0,  # K9c
     "scan_prefix_madd_unpacked": 0,  # K2a
@@ -171,8 +174,12 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_team_block.restype = i
         L.zkp_rcb_team_lanes.argtypes = [i, ll]
         L.zkp_rcb_team_lanes.restype = i
-        L.zkp_ec_add.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
+        L.zkp_ec_add.argtypes = [vp, i, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_add.restype = i
+        L.zkp_ec_add_chain.argtypes = [vp, i] + [vp] * 9 + [ctypes.c_char_p, i, ll, vp]
+        L.zkp_ec_add_chain.restype = i
+        L.zkp_ec_fixed_base.argtypes = [vp, i] + [vp] * 6 + [ll, vp]
+        L.zkp_ec_fixed_base.restype = i
         L.zkp_ec_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_madd.restype = i
         L.zkp_ec_scan.argtypes = [vp, i, i] + [vp] * 6 + [ll, i, vp]

@@ -61,10 +61,10 @@ def _launch_args(ts):
 
 
 # ------------------------------------------------------------------ K5
-def launch_pairwise(entry: str, count: str, kconsts, cf, p, q):
+def launch_pairwise(entry: str, count: str, kconsts, cf, p, q, *lead):
     """Launch an elementwise kernel of two points (K5, K8) on broadcast
-    (X, Y, Z) operands; the C entry takes (consts, ext, out x3, p x3, q x3,
-    n, stream)."""
+    (X, Y, Z) operands; the C entry takes (consts, ext, *lead, out x3, p x3,
+    q x3, n, stream) (K8's lead: its one-thread flag)."""
     cs = cf.coord_shape
     shape = torch.broadcast_shapes(*(c.shape for c in (*p, *q)))
     coords = [c.expand(shape).contiguous() for c in (*p, *q)]
@@ -76,7 +76,7 @@ def launch_pairwise(entry: str, count: str, kconsts, cf, p, q):
     if n == 0:
         return tuple(out)
     rc = getattr(cuda_build.lib(), entry)(
-        kconsts.ctypes.data, cf.ext, *_launch_args(out), *_launch_args(coords),
+        kconsts.ctypes.data, cf.ext, *lead, *_launch_args(out), *_launch_args(coords),
         n, cuda_build.stream_ptr(out[0]),
     )
     cuda_build.COUNTS[count] += 1
@@ -148,13 +148,15 @@ FB_ROWS = 256  # table rows a window (kFbRows)
 FB_LIMBS = 16  # 16-bit limbs a scalar (kFbLimbs)
 
 
-def _check_fixed_base(rg, X, Y, scalars):
-    shape = (FB_WINDOWS, FB_ROWS, *rg.cf.coord_shape)
+def check_fixed_base(cf, X, Y, scalars, what: str = "rcb_fixed_base"):
+    """The fixed-base operands: tables (32, 256, *coord_shape), scalars
+    (n, 16) limbs (K6's and K9a's fixed-base kernels)."""
+    shape = (FB_WINDOWS, FB_ROWS, *cf.coord_shape)
     for name, t in (("X", X), ("Y", Y)):
         if tuple(t.shape) != shape:
-            raise ValueError(f"rcb_fixed_base: table {name} {tuple(t.shape)} != {shape}")
+            raise ValueError(f"{what}: table {name} {tuple(t.shape)} != {shape}")
     if scalars.dim() != 2 or scalars.shape[1] != FB_LIMBS:
-        raise ValueError(f"rcb_fixed_base: scalars {tuple(scalars.shape)} are not "
+        raise ValueError(f"{what}: scalars {tuple(scalars.shape)} are not "
                          f"(n, {FB_LIMBS}) limbs")
 
 
@@ -168,7 +170,7 @@ def rcb_fixed_base(rg, X, Y, scalars):
     (8192 rows; no flag bit) for the kernel."""
     if scalars.device.type == "cpu":
         return rcb_fixed_base_plain(rg, X, Y, scalars)
-    _check_fixed_base(rg, X, Y, scalars)
+    check_fixed_base(rg.cf, X, Y, scalars)
     for name, t in (("X", X), ("Y", Y), ("scalars", scalars)):
         cuda_build.check_tensor(t, f"rcb_fixed_base {name}")
     n = scalars.shape[0]
@@ -188,7 +190,7 @@ def rcb_fixed_base(rg, X, Y, scalars):
 def rcb_fixed_base_plain(rg, X, Y, scalars):
     """Plain K6 fixed-base: the window loop with torch indexing, each step
     Alg. 8 and the flag select over the plain field (`madd_formula`)."""
-    _check_fixed_base(rg, X, Y, scalars)
+    check_fixed_base(rg.cf, X, Y, scalars)
     rgp = rg.plain
     sc = scalars.to(torch.int64)
     acc = rgp.identity((sc.shape[0],))

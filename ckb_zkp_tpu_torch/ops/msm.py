@@ -24,10 +24,13 @@ The Jacobian engine is the reference's other branch of `DeviceCurveGroup`
 windows one at a time through `_window_sum` (`:594-636`), whose bucket
 boundaries come from `_prefix_boundary_leaf` and `_prefix_boundary_jac`
 (`:670-733`) over sorted affine leaves: K9b block totals, a K9c level,
-a Hillis-Steele top and K8 combines; the fixed-base MSM accumulates with
-K9a (`_fixed_base_impl`, `:883-899`). The port always takes the
-reference's accelerator branch of that engine (affine leaves, block
-totals, the K9a fixed-base), so it keeps no `_affine_leaves` flag. Both
+a Hillis-Steele top and K8 combines, and the window folds (the Horner
+sum over the window sums, `_window_sum`'s (2^c - 1) E_last) are one K8
+chain launch each; the fixed-base MSM (`_fixed_base_impl`, `:883-899`,
+which runs K9a once a window) is one K9a fixed-base launch here. The port
+always takes the reference's accelerator branch of that engine (affine
+leaves, block totals, the K9a fixed-base), so it keeps no
+`_affine_leaves` flag. Both
 engines give the same affine points; every pairing curve of the repo has
 a = 0, so the RCB engine is the default and the Jacobian one runs where a
 caller sets `_use_rcb = False`.
@@ -38,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from ..host.curves import AffinePoint
-from .cuda_ec import block_totals_add, block_totals_madd, ec_madd
+from .cuda_ec import (block_totals_add, block_totals_madd, ec_add_chain, ec_fixed_base,
+                      ec_madd)
 from .cuda_rcb import (pack_limbs_flag, rcb_fixed_base, scan_prefix_add,
                        scan_prefix_madd, scan_prefix_madd_unpacked, scan_total_add)
 from .ec import (DeviceFq2, ec_add, ec_double, ec_neg, point_infinity, point_select,
@@ -60,7 +64,7 @@ _FIXED_BASE_BITS = 8  # fixed-base windows (the reference's device_group default
 _SCAN_B = 32  # K9b/K9c block (reference `_SCAN_B`)
 _LEAF_GROUPS = 8 * 128  # K9b runs when n % (_SCAN_B * _LEAF_GROUPS) == 0 (SCAN_SUBS * 128)
 _JAC_TOP = 2 * 32 * 128  # _prefix_boundary_jac scans Hillis-Steele at n <= this
-_FB_CHUNK = 1 << 18  # fixed-base chunk (reference `_fb_chunk` on its accelerator)
+_NORMALIZE_CHUNK = 1 << 18  # points a slice of the Jacobian fixed-base normalization
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -393,7 +397,9 @@ class DeviceCurveGroup:
         P affine-encoded: its leaves are (X, Y, Z == 0). The reference runs
         the windows one at a time; the port runs them in batches of up to
         _WINDOW_BATCH_POINTS leaves, as `_msm_rcb` does, so each K9b, K9c
-        and K8 launch covers a batch of windows."""
+        and K8 launch covers a batch of windows. The fold is one K8 chain
+        launch: W rounds of c doublings t + t and an add, from infinity (the
+        loop of W (c + 1) K8 launches it replaces, the same bits)."""
         X, Y, Z = P
         leaves = (X, Y, self.cf.is_zero(Z))
         n, W = X.shape[0], self.nwindows
@@ -402,12 +408,9 @@ class DeviceCurveGroup:
         parts = [self._window_sums(leaves, digits[w0 : w0 + batch])
                  for w0 in range(0, W, batch)]
         S = tuple(torch.cat(cs) for cs in zip(*parts))  # (W,)
-        acc = self.p_identity()
-        for i in range(W):
-            for _ in range(self.c):
-                acc = self.p_add(acc, acc)  # 2 acc, see _window_sums
-            acc = self.p_add(acc, tuple(s[W - 1 - i] for s in S))
-        return acc
+        addends = tuple(s.flip(0).unsqueeze(1) for s in S)  # (W, 1), the top window first
+        acc = ec_add_chain(self.cf, self.p_identity((1,)), addends, [self.c] * W)
+        return tuple(a[0] for a in acc)
 
     def _window_sums(self, leaves, digits):
         """sum_b b * B_b for each row of (k, n) digits (reference
@@ -418,10 +421,11 @@ class DeviceCurveGroup:
         halving tree, the same point with nb - 2 adds. The reference doubles
         with `ec_double` (`p_double`); here and in the fold the port doubles
         with K8's t + t, whose doubling branch is `ec_double`'s formula
-        (infinity stays infinity, in another representative): one launch
-        on the card, where the torch composition is some 200 launches of
-        tiny ops (with it, a 2^20-point G1 MSM made 97511 launches and took
-        1.29 s on an H100)."""
+        (infinity stays infinity, in another representative), where the
+        torch composition is some 200 launches of tiny ops (with it, a
+        2^20-point G1 MSM made 97511 launches and took 1.29 s on an H100).
+        The c doublings of E_last and the two closing adds are one K8 chain
+        launch (the c + 2 K8 launches of the loop, the same bits)."""
         nb = self.nb
         order = torch.sort(digits, dim=1).indices
         ar = torch.arange(nb, device=digits.device).expand(digits.shape[0], nb)
@@ -429,11 +433,8 @@ class DeviceCurveGroup:
         E = self._prefix_boundary_leaf(tuple(c[order] for c in leaves), cnt - 1)
         e_last = tuple(e[:, nb - 1] for e in E)
         sum_e = self._sum_dim1(tuple(e[:, : nb - 1] for e in E))
-        t = e_last
-        for _ in range(self.c):
-            t = self.p_add(t, t)
-        acc = self.p_add(t, self.p_neg(e_last))
-        return self.p_add(acc, self.p_neg(sum_e))
+        addends = tuple(torch.stack(ab) for ab in zip(self.p_neg(e_last), self.p_neg(sum_e)))
+        return ec_add_chain(self.cf, e_last, addends, [self.c, 0])
 
     def _sum_dim1(self, pts):
         """(k, n) points -> (k,) sums, by a halving tree of K8 adds."""
@@ -516,9 +517,15 @@ class DeviceCurveGroup:
         through `_wide_madd` (`ops/msm.py:917-925, 953`); the reference
         selects the rows with a one-hot int8 matmul (XLA work, not a
         kernel), the kernel reads them through the digits. The projective
-        output is normalized once. Jacobian: chunks of _FB_CHUNK scalars
-        through `_fixed_base_impl` (reference `:1035-1036`,
-        `_fixed_base_chunked` `:969-980`)."""
+        output is normalized once. Jacobian: one K9a fixed-base launch
+        (`cuda_ec.ec_fixed_base`), the same chain of Jacobian mixed adds
+        from infinity, where the reference runs K9a once a window on
+        gathered rows in chunks of scalars (`_fixed_base_impl` `:883-899`,
+        `_fixed_base_chunked` `:969-980`); `_normalize` runs after it over
+        slices of _NORMALIZE_CHUNK points, in place, which bounds its batch
+        inversion's temporaries as the reference's chunks do (an all-zero
+        scalar's infinity, in another representative than the window
+        loop's, normalizes to the same (0, 0, 0))."""
         n = scalars.shape[0]
         if not self._use_rcb:
             self._check_jacobian()
@@ -529,25 +536,16 @@ class DeviceCurveGroup:
         sc = scalars
         if np2 != n:
             sc = torch.cat([sc, sc.new_zeros((np2 - n, sc.shape[1]))])
+        X, Y, _ = table
         if self._use_rcb:
-            X, Y, _ = table
             out = self._normalize_proj(rcb_fixed_base(self.rg, X, Y, sc))
         else:
-            parts = [self._fixed_base_impl(table, sc[i : i + _FB_CHUNK])
-                     for i in range(0, np2, _FB_CHUNK)]
-            out = tuple(torch.cat(cs) for cs in zip(*parts))
+            out = ec_fixed_base(self.cf, X, Y, sc)
+            for i in range(0, np2, _NORMALIZE_CHUNK):
+                part = self._normalize(tuple(c[i : i + _NORMALIZE_CHUNK] for c in out))
+                for c, q in zip(out, part):
+                    c[i : i + _NORMALIZE_CHUNK] = q
         return out if pad_output else tuple(c[:n] for c in out)
-
-    def _fixed_base_impl(self, table, scalars):
-        """Jacobian fixed-base: one K9a mixed add per window on the
-        gathered table rows (the d = 0 row is infinity, flagged by
-        d == 0), then one normalization (reference `ops/msm.py:883-899`)."""
-        X, Y, _ = table
-        acc = self.p_identity((scalars.shape[0],))
-        for w in range(self.nwindows):
-            d = self._digits(scalars, w)
-            acc = ec_madd(self.cf, acc, (X[w][d], Y[w][d], d == 0))
-        return self._normalize(acc)
 
     def _normalize_proj(self, p):
         """Projective -> affine-encoded Jacobian (Z in {0, one}); the Z

@@ -1,7 +1,9 @@
-"""The team kernels at every shape of a 2^log2 prove and the setup's
-fixed-base MSM, one tree's kernels against another's, in one call on the
+"""The team kernels at every shape of a 2^log2 prove and the setups'
+fixed-base MSMs, one tree's kernels against another's, in one call on the
 card: K3 and K4 at each level, K2 at the prove's window batch, K5 at each
-of its shapes, and K6's fixed-base MSM at the setup's width.
+of its shapes, K6's fixed-base MSM at the setup's width; on the Jacobian
+engine K8 at each shape of its prove, its window folds, and K9a's
+fixed-base MSM at the setup's width.
 
     python3 ckb_zkp_tpu_torch/probes/levels.py --parent DIR [--log2 20] [--reps 20]
         [--out OUT]
@@ -21,6 +23,15 @@ MSM of 2^log2 scalars (uniform below r's top limb) over random window
 tables of 32 x 256 rows, as `cuda_rcb.rcb_fixed_base` where the tree has it
 and else as the per-window loop it replaced (an int64 copy of the scalars,
 and per window the digits, two table-row gathers and the elementwise K6);
+the Jacobian engine's K8 (`cuda_ec.ec_add`) at every shape of
+`k8_shapes(log2)`; its window folds at the shapes `k8_shapes` gives the
+chain (`_window_sums`' k points with c and 0 doublings, the fold's one
+point with 32 rounds of c from infinity), as `cuda_ec.ec_add_chain` where
+the tree has it and else as the loop of K8 launches it replaced; and K9a's
+fixed-base MSM of 2^log2 scalars, as `cuda_ec.ec_fixed_base` where the
+tree has it and else as the per-window loop of elementwise K9a
+(`jacobian_window_loop`), its totals normalized before they are hashed (the
+two differ before normalization only for a zero scalar);
 G1 and G2. Each call is timed by CUDA events and by the device time of its
 kernels in a `torch.profiler` trace (for a launch of a few points, events
 measure mostly the host's launch overhead). Every output of every run must
@@ -92,6 +103,24 @@ def window_loop(rg, X, Y, sc):
     return acc
 
 
+def jacobian_window_loop(cf, X, Y, sc):
+    """The Jacobian setup's fixed-base MSM before K9a's fixed-base kernel
+    (the reference's `_fixed_base_impl`): from infinity, a window at a time
+    the 8-bit digits d of the scalars sc (n, 16), the table rows X[w][d],
+    Y[w][d] gathered, and the elementwise K9a (`cuda_ec.ec_madd`) with the
+    flag d == 0. Jacobian totals, before normalization."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_ec, ec
+
+    s64 = sc.to(torch.int64)
+    acc = ec.point_infinity(cf, (sc.shape[0],))
+    for w in range(X.shape[0]):
+        d = (s64[:, w // 2] >> (8 * (w % 2))) & 255
+        acc = cuda_ec.ec_madd(cf, acc, (X[w][d], Y[w][d], d == 0))
+    return acc
+
+
 def worker(tree: str, shapes: list, reps: int) -> dict:
     """Time each shape with the kernels of `tree` (imported from there)."""
     sys.path.insert(0, tree)
@@ -99,12 +128,15 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
     import torch
 
     from ckb_zkp_tpu_torch.host.pairing import get_curve
-    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_rcb
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_ec, cuda_rcb, ec
     from ckb_zkp_tpu_torch.ops.msm import device_group
     from ckb_zkp_tpu_torch.probes.common import cuda_ms, rand_field
 
     cuda_build.lib()
     team_shape = getattr(cuda_rcb, "team_shape", None)
+    ec_lanes = getattr(cuda_ec, "ec_team_lanes", None)
+    chain = getattr(cuda_ec, "ec_add_chain", None)
+    jac_fixed_base = getattr(cuda_ec, "ec_fixed_base", None)
     fixed_base = getattr(cuda_rcb, "rcb_fixed_base", None)
     fused = "order" in inspect.signature(cuda_rcb.scan_prefix_madd).parameters
     curve = get_curve("bn254")
@@ -147,12 +179,50 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
                     def fn():
                         return window_loop(rg, X, Y, sc)
                 teams = M
-            elif name == "rcb_add":
+            elif name == "jac_fixed_base":
+                X, Y = (rand_field(rng, 32 * 256, cs, dg.fq).reshape(32, 256, *cs)
+                        for _ in range(2))
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                sc = torch.randint(0, 1 << 16, (M, 16), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+                sc[:, -1] = torch.randint(0, curve.fr.modulus >> 240, (M,), generator=gen,
+                                          device="cuda", dtype=torch.int32)
+                if jac_fixed_base:
+                    def fn():
+                        return jac_fixed_base(dg.cf, X, Y, sc)
+                else:  # the parent's fixed-base MSM: the per-window loop
+                    def fn():
+                        return jacobian_window_loop(dg.cf, X, Y, sc)
+                teams = M
+            elif name == "ec_add_chain":
+                k, rounds = M, B
+                dbl = [8] * rounds if k == 1 else [8] + [0] * (rounds - 1)
+                init = (ec.point_infinity(dg.cf, (k,)) if k == 1
+                        else tuple(rand_field(rng, k, cs, dg.fq) for _ in range(3)))
+                add = tuple(rand_field(rng, rounds * k, cs, dg.fq).reshape(rounds, k, *cs)
+                            for _ in range(3))
+                if chain:
+                    def fn():
+                        return chain(dg.cf, init, add, dbl)
+                else:  # the parent's fold: a loop of K8 launches
+                    def fn():
+                        acc = init
+                        for r, d in enumerate(dbl):
+                            for _ in range(d):
+                                acc = cuda_ec.ec_add(dg.cf, acc, acc)
+                            acc = cuda_ec.ec_add(dg.cf, acc, tuple(a[r] for a in add))
+                        return acc
+                teams = k
+            elif name in ("rcb_add", "ec_add"):
                 P = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
                 Q = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
-
-                def fn():
-                    return cuda_rcb.rcb_add(rg, P, Q)
+                if name == "rcb_add":
+                    def fn():
+                        return cuda_rcb.rcb_add(rg, P, Q)
+                else:
+                    def fn():
+                        return cuda_ec.ec_add(dg.cf, P, Q)
                 teams = M
             else:
                 pts = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
@@ -164,6 +234,8 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
 
             res = fn()
             flat = res[0] + res[1] if name in ("scan_prefix_add", "scan_prefix_madd") else res
+            if name == "jac_fixed_base":
+                flat = dg._normalize(res)
             torch.cuda.synchronize()
             h = hashlib.sha256()
             for t in flat:
@@ -172,7 +244,10 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
             n = reps if M < 1 << 20 else max(3, reps // 4)
             row = {"name": name, "group": group, "M": M, "B": B, "sha256": h.hexdigest()[:16],
                    "ms": cuda_ms(fn, n), "device_ms": device_ms(fn, n)}
-            if team_shape and name != "fixed_base" and (
+            if name in ("ec_add", "ec_add_chain"):
+                if ec_lanes:
+                    row["threads"] = teams * ec_lanes(dg.cf, teams)
+            elif team_shape and "fixed_base" not in name and (
                     fused or name not in ("scan_prefix_madd", "rcb_add")):
                 lanes, row["block"] = team_shape(rg, teams)
                 row["threads"] = teams * lanes
@@ -180,7 +255,8 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
             fn = None
             torch.cuda.empty_cache()
     return {"tree": tree, "build_s": cuda_build.BUILD_INFO.get("seconds"), "fused_k2": fused,
-            "fixed_base_kernel": fixed_base is not None, "shapes": out}
+            "fixed_base_kernel": fixed_base is not None, "k8_chain": chain is not None,
+            "k9a_fixed_base_kernel": jac_fixed_base is not None, "shapes": out}
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -190,12 +266,13 @@ _REGS = re.compile(r"Used (\d+) registers")
 # template arguments (the anonymous namespace's part names the file)
 _KERNEL = re.compile(r"\d+(rcb_team_scan|rcb_team_madd_scan|rcb_team_add|rcb_scan_kernel|"
                      r"rcb_add_kernel|rcb_team_fixed_base|rcb_fixed_base_kernel|"
-                     r"rcb_madd_kernel)I(\w+?)EEv")
+                     r"rcb_madd_kernel|ec_team_add|ec_team_chain|"
+                     r"ec_add_kernel|ec_fixed_base_kernel|ec_madd_kernel)I(\w+?)EEv")
 
 
 def registers(log: str) -> list:
     """(kernel instance, registers, spill stores, spill loads) of the RCB
-    scan and add kernels in an nvcc --resource-usage log."""
+    and Jacobian point kernels in an nvcc --resource-usage log."""
     rows, name, spill = [], None, (0, 0)
     for line in log.splitlines():
         if m := _ENTRY.search(line):
@@ -242,6 +319,10 @@ def main() -> int:
     shapes.append(("scan_prefix_madd", sizes["scan_prefix_madd"], 32, 1 << args.log2))
     shapes += [("rcb_add", n, None, None) for n, _ in chip_smoke.k5_shapes(args.log2)]
     shapes.append(("fixed_base", sizes["rcb_fixed_base"], 32, None))
+    adds, chains = chip_smoke.k8_shapes(args.log2)
+    shapes += [("ec_add", n, None, None) for n, _ in adds]
+    shapes += [("ec_add_chain", k, 32 if k == 1 else 2, None) for k, _ in chains]
+    shapes.append(("jac_fixed_base", sizes["ec_fixed_base"], 32, None))
     parent = os.path.abspath(args.parent)
     runs = []
     for tree in (parent, REPO, REPO, parent):
@@ -256,7 +337,8 @@ def main() -> int:
         runs.append(json.loads(line[0][len("SHAPES "):]))
         print(f"{tree}: built in {runs[-1]['build_s']} s, K2 fused with the order: "
               f"{runs[-1]['fused_k2']}, fixed-base kernel: "
-              f"{runs[-1]['fixed_base_kernel']}", flush=True)
+              f"{runs[-1]['fixed_base_kernel']}, K8 chain: {runs[-1]['k8_chain']}, K9a "
+              f"fixed-base kernel: {runs[-1]['k9a_fixed_base_kernel']}", flush=True)
     summary = []
     for i in range(len(runs[0]["shapes"])):
         rows = [r["shapes"][i] for r in runs]
@@ -265,7 +347,10 @@ def main() -> int:
         old, new = (rows[0], rows[3]), (rows[1], rows[2])
 
         def shape_of(r):
-            return f" ({r['threads']} threads, blocks of {r['block']})" if "block" in r else ""
+            if "threads" not in r:
+                return ""
+            return f" ({r['threads']} threads" + (
+                f", blocks of {r['block']})" if "block" in r else ")")
 
         def pair(a, b, key):
             return " / ".join("not measured" if r[key] is None else f"{r[key]:.6f}"

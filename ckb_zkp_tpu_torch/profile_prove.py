@@ -11,7 +11,9 @@ under torch.profiler: the device's busy time (sum of kernel self times),
 its idle share of the wall clock, the launches and device time of torch's
 row-read kernels (names holding "gather" or "index": the gathers and
 indexing of table or leaf rows), each such kernel by name, and the 40
-kernels with the most device time. With `--setup` the timed and profiled
+kernels with the most device time, and the port's own kernels grouped by
+launch shape (grid and block, from the trace's kernel records): each
+shape's launches and device ms. With `--setup` the timed and profiled
 runs are setups instead (no prove). `--engine jacobian` runs
 setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
 card's device groups).
@@ -23,9 +25,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -88,6 +93,33 @@ def _profiled(run, card: str) -> None:
         print(f"row read: {ms:10.3f} ms {n:6d} x  {name[:110]}")
     for name, (n, ms) in top:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
+    for (name, grid, block), (n, ms) in sorted(_by_shape(prof).items()):
+        print(f"shape: {ms:10.3f} ms {n:6d} x  {name} grid {grid} block {block}")
+
+
+# the port's kernels (csrc/): their own names in the trace's demangled ones
+_OWN = re.compile(r"\b((?:ec|rcb|mont)_\w+?)(?:<|\()")
+
+
+def _by_shape(prof) -> dict:
+    """(kernel, grid, block) -> (launches, device ms) of the port's own
+    kernels in the profile, from its Chrome trace (the trace's kernel
+    records carry the launch's grid and block)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out: dict = {}
+    for e in events:
+        m = _OWN.search(e.get("name", ""))
+        if e.get("cat") != "kernel" or not m:
+            continue
+        a = e.get("args", {})
+        key = (m.group(1), str(a.get("grid")), str(a.get("block")))
+        n, ms = out.get(key, (0, 0.0))
+        out[key] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return out
 
 
 def main() -> int:

@@ -204,11 +204,13 @@ def test_jacobian_msm_matches_host_and_rcb(group, n, monkeypatch):
 
 
 def test_jacobian_fixed_base_matches_host_mul(monkeypatch):
-    """K9a (plain) accumulating the window table, in two chunks, then one
-    normalization: affine-encoded points padded to a power of two."""
-    monkeypatch.setattr(msm, "_FB_CHUNK", 8)
+    """K9a's fixed-base chain (plain) over the window table, one call for
+    all the scalars, then the normalization in slices (patched to 4 points,
+    so the 16 padded points take four): affine-encoded points padded to a
+    power of two."""
     dg = device_group(CURVE, "g1", "cpu")
     monkeypatch.setattr(dg, "_use_rcb", False)
+    monkeypatch.setattr(msm, "_NORMALIZE_CHUNK", 4)
     r = CURVE.fr.modulus
     sc = [0, 1, 2, r - 1, 5 << 200, 3, 1 << 64, 7, 11, 13]
     out = dg.fixed_base_msm(dg.fixed_base_table(CURVE.g1_gen), dg.encode_scalars(sc),

@@ -11,8 +11,8 @@ pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RCB_PROVE = {"mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
              "rcb_add"}
-JAC_PROVE = {"ec_add", "ec_block_totals_madd", "ec_block_totals_add"}
-KERNELS = RCB_PROVE | JAC_PROVE | {"rcb_madd", "rcb_fixed_base", "ec_madd"}
+JAC_PROVE = {"ec_add", "ec_add_chain", "ec_block_totals_madd", "ec_block_totals_add"}
+KERNELS = RCB_PROVE | JAC_PROVE | {"rcb_madd", "rcb_fixed_base", "ec_madd", "ec_fixed_base"}
 
 
 @pytest.fixture
@@ -108,6 +108,58 @@ def test_fixed_base_every_shape_compared(smoke):
     assert all(r["bound_ms"] > 0 and r["ms"] > 0 and r["loop_ms"] > 0 for r in rows)
 
 
+def test_jacobian_fixed_base_every_shape_compared(smoke):
+    """K9a's fixed-base kernel (G1, G2) bit for bit against its plain
+    version at 1, 7, 2047, 2048 and 2049 points with edge scalars and at a
+    2^14 setup's width, where it also equals the per-window loop it
+    replaced after normalization (`jacobian_fixed_base_checks`)."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append(name)
+
+    rows = smoke.jacobian_fixed_base_checks(record, np.random.default_rng(4),
+                                            get_curve("bn254"), 14)
+    assert [(r["group"], r["n"]) for r in rows] == [("g1", 1 << 14), ("g2", 1 << 14)]
+    assert seen == ["ec_fixed_base"] * 2 * (len(smoke.FB_EDGE) + 1)
+    assert all(r["loop_launches"] == 32 for r in rows)
+    assert all(r["bound_ms"] > 0 and r["ms"] > 0 and r["loop_ms"] > 0 for r in rows)
+
+
+def test_jacobian_shapes_every_shape_compared(smoke):
+    """K8 at every shape of a 2^14 Jacobian prove (`k8_shapes`) against its
+    plain version and the one-thread K8, and its chain entry at the window
+    folds' shapes against its plain version and the loop of K8 launches
+    it replaced, G1 and G2 (`jacobian_shape_checks`); the G2 team splits
+    up to 2048 points."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append(name)
+
+    curve = get_curve("bn254")
+    rows = smoke.jacobian_shape_checks(record, np.random.default_rng(5), curve, 14)
+    adds, chains = smoke.k8_shapes(14)
+    assert [(r["name"], r["group"], r["points"]) for r in rows] == [
+        (name, g, n) for g in ("g1", "g2")
+        for name, n in [("ec_add", n) for n, _ in adds] + [("ec_add_chain", k)
+                                                           for k, _ in chains]]
+    assert seen.count("ec_add") == 2 * len(adds)
+    assert all(r["bound_ms"] > 0 and r["ms"] > 0 for r in rows)
+    assert all(r["lanes"] == (16 if r["group"] == "g2" and r["points"] <= 2048 else 4)
+               for r in rows)
+
+
 def test_k6_device_setup_equals_host_mode(smoke):
     smoke.phase_setup_check(10)
 
@@ -121,8 +173,18 @@ def test_small_setup_and_prove_launch_every_kernel(smoke):
 def test_small_jacobian_setup_and_prove_equal_the_rcb_ones(smoke):
     card = torch.cuda.get_device_name(0)
     jac = smoke.phase_jacobian(card, smoke.phase_slice(card, 13), 13)
-    assert jac["setup_launches"]["ec_madd"] > 0
+    assert jac["setup_launches"]["ec_fixed_base"] == 5
+    assert jac["setup_launches"]["ec_madd"] == 0
     assert all(jac["prove_launches"][k] > 0 for k in JAC_PROVE)
+
+
+def test_jacobian_msm_leaf_branch_launches_the_elementwise_k9a(smoke):
+    """The G1 and G2 Jacobian MSMs at `leaf_shapes`' width equal the host
+    ints and launch the elementwise K9a as often as `leaf_shapes` counts
+    (`phase_jacobian_leaf`)."""
+    launches = smoke.phase_jacobian_leaf(torch.cuda.get_device_name(0))
+    assert launches["ec_madd"] == 2 * smoke.leaf_shapes()[2]
+    assert launches["ec_fixed_base"] == 0
 
 
 def test_probe_kernels_bit_equal_and_launched_by_the_probes(smoke):

@@ -150,7 +150,8 @@ def test_cuda_sources_and_build_command():
     assert cuda_build.BUILD_DIR.startswith(PKG_DIR)
     assert set(cuda_build.COUNTS) == {
         "mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
-        "rcb_add", "rcb_madd", "rcb_fixed_base", "ec_add", "ec_madd", "ec_block_totals_madd",
+        "rcb_add", "rcb_madd", "rcb_fixed_base", "ec_add", "ec_add_chain", "ec_madd",
+        "ec_fixed_base", "ec_block_totals_madd",
         "ec_block_totals_add", "scan_prefix_madd_unpacked", "scan_prefix_madd_packed",
         "probe_madd_totals", "probe_madd_prefix_packed", "probe_chain_mul",
         "probe_gmajor_totals", "probe_gmajor_prefix", "probe_u32_ops", "probe_band_mma",
