@@ -29,7 +29,12 @@ equal the per-window loop it replaced after normalization,
 `jacobian_fixed_base_checks`; K8 at every shape of the prove, `k8_shapes`,
 held against the one-thread K8 too, and its chain entry at the window
 folds' shapes against the loop of K8 launches it replaced,
-`jacobian_shape_checks`); and the port's MSM on both engines
+`jacobian_shape_checks`; K9b with the leaves in order and through a
+permutation, and K9c, at one block, 67 blocks of B = 5,
+4229 blocks and the G2 team boundary of 2048 and 2049 chains with
+flagged leaves, P == Q and P == -Q inside a block, then at the prove's
+shapes, K9b through a real sort order, each beside its bound and its old
+time, `jacobian_totals_checks`); and the port's MSM on both engines
 against the host-int MSM on a small input; (4) a 2^14 setup check: the
 device instance map against the host ints, and the device-branch queries
 against the host-mode queries point for point; (5) the slice: the device
@@ -45,7 +50,12 @@ every query equal to the RCB setup's limb for limb on the rows both hold
 (r, s), the verifier's verdicts, K9a's fixed-base kernel launched by that
 setup once a query (5 times) and the elementwise K9a never, and K8, its
 chain, K9b and K9c by that prove, K8 and the chain no more often than
-`k8_shapes` counts; then a G1 and a G2 Jacobian MSM of 2^14 points, the
+`k8_shapes` counts, K9b (every launch through the sort order) and K9c
+once a window batch, and, in a prove of the 2^15 square chain (the
+smallest whose MSMs read their leaves through the order) traced with
+stacks, no row read that an `aten::index` op launched from `_window_sums`
+(the sorted copy of the leaves made three a window batch); then a G1 and a G2
+Jacobian MSM of 2^14 points, the
 widest that still runs the elementwise K9a (`_prefix_boundary_leaf`'s
 leaf branch, `leaf_shapes`), against the host ints, with that K9a's
 launches counted from those two MSMs alone (`phase_jacobian_leaf`); (7)
@@ -121,7 +131,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "ec_madd": ("ec_madd.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
     "ec_fixed_base": ("ec_fixed_base.cu", "ckb_zkp_tpu/ops/pallas_ec.py:259"),
     "ec_block_totals_madd": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:271"),
-    "ec_block_totals_add": ("ec_scan.cu", "ckb_zkp_tpu/ops/pallas_ec.py:290"),
+    "ec_block_totals_add": ("ec_team.cuh", "ckb_zkp_tpu/ops/pallas_ec.py:290"),
     "scan_prefix_madd_unpacked": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:275"),
     "scan_prefix_madd_packed": ("rcb_scan.cu", "ckb_zkp_tpu/ops/pallas_rcb.py:225"),
     "probe_madd_totals": ("probe_scan.cu", "scripts/probe_scan.py:95"),
@@ -875,6 +885,165 @@ def jacobian_shape_checks(record, rng, curve, log2: int) -> list:
     return rows
 
 
+# K9b and K9c shapes besides the prove's, as (blocks, B): one block, 67
+# blocks of B = 5 (fewer chains than a warp), 4229 of 32 (the last block
+# of threads filled in part) and the G2 team boundary (kEcSplitMax = 2048
+# chains and one more)
+TOTALS_EDGE = ((1, 32), (67, 5), (4229, 32), (2048, 32), (2049, 32))
+
+
+def _totals_leaves(cf, rng, dg, n: int, B: int, edges: bool):
+    """n affine leaves (X, Y, inf) on the card. With `edges`, 10% flagged
+    and block 0 (of B leaves) holds the mixed add's branches: leaf 1 =
+    -leaf 0 (P == -Q: a sum with Z = 0), leaf 2 taken by that infinite
+    accumulator, leaf 3 = leaf 2 (P == Q: the doubling); block 1 starts
+    with a flagged leaf (an infinite accumulator takes (x2, y2, 0)).
+    Without, 1% flagged (the prove's leaves)."""
+    import torch
+
+    cs = cf.coord_shape
+    X, Y = rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq)
+    inf = torch.as_tensor(rng.random(n) < (0.1 if edges else 0.01), device=DEVICE)
+    if edges:
+        inf[:4] = False
+        X[1], Y[1] = X[0], cf.neg(Y[:1])[0]
+        X[3], Y[3] = X[2], Y[2]
+        if n > B:
+            inf[B] = True
+    return X, Y, inf
+
+
+def _totals_points(cf, rng, dg, n: int, B: int):
+    """n general-Z Jacobian points on the card, 10% at infinity (Z = 0);
+    block 0 holds the add's branches: point 1 = point 0 (P == Q: the
+    doubling), point 2 = -2 point 0 (P == -Q: a sum with Z = 0), point 3
+    taken by that infinite accumulator; block 1 starts at infinity."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_ec, ec
+
+    pts = tuple(rand_field(rng, n, cf.coord_shape, dg.fq) for _ in range(3))
+    inf = torch.as_tensor(rng.random(n) < 0.1, device=DEVICE)
+    inf[:4] = False
+    if n > B:
+        inf[B] = True
+    pts[2][inf] = 0
+    p0 = tuple(c[:1] for c in pts)
+    neg2 = ec.ec_neg(cf.plain, cuda_ec.ec_add_plain(cf, p0, p0))
+    for c in range(3):
+        pts[c][1], pts[c][2] = pts[c][0], neg2[c][0]
+    return pts
+
+
+def jacobian_totals_checks(record, rng, curve, log2: int) -> list:
+    """K9b and K9c (G1, G2) against their plain versions, bit for bit. K9b
+    at the shapes of TOTALS_EDGE (`_totals_leaves` with its edges), with
+    the leaves in order and through a random permutation of them; then at
+    the prove's (jb * npad, 32) through the sort order of random digits
+    over npad leaves (1% flagged), as `_window_sums` calls it. K9c at
+    TOTALS_EDGE (`_totals_points`) and at the prove's jb * npad / 32
+    points. Each main-path shape is timed by CUDA events (its launches
+    last 0.18 ms or more, so events hold little host overhead) beside its
+    bound; K9b also beside the path it replaced, the sorted copy of the
+    leaves (also timed alone) and K9b over it. K9c's old kernel, one
+    thread a chain, is gone: `probes/levels.py --parent` times it in an
+    earlier tree. Returns one record a main-path shape and curve."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_ec
+    from ckb_zkp_tpu_torch.ops.msm import _FIXED_BASE_BITS, _SCAN_B, device_group
+
+    sizes = path_shapes(log2, 256)
+    npad, B = 1 << log2, _SCAN_B
+    jb = sizes["ec_block_totals_madd"] // npad
+    batches = -(-(256 // _FIXED_BASE_BITS) // jb)  # window batches a MSM
+    rows = []
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        cf, cs, ext = dg.cf, dg.cf.coord_shape, dg.cf.ext
+        eb = ext * FQ_BYTES
+        msms = 4 if group == "g1" else 1  # MSMs of each group in a prove
+        for G, b in TOTALS_EDGE:
+            lv = _totals_leaves(cf, rng, dg, G * b, b, True)
+            pl = cuda_ec.block_totals_madd_plain(cf, lv, b)
+            perm = torch.as_tensor(rng.permutation(G * b), device=DEVICE)
+            pool = tuple(c[perm] for c in lv)  # pool row p holds leaf perm[p]
+            order = torch.argsort(perm)
+            if max_abs_err(cuda_ec.block_totals_madd(cf, lv, b), pl):
+                raise AssertionError(f"ec_block_totals_madd ({group}, {G} x {b}, leaves in "
+                                     "order) != plain")
+            _, plain_ms = timed_once(lambda: cuda_ec.block_totals_madd_plain(cf, pool, b, order))
+            record("ec_block_totals_madd", max_abs_err(
+                cuda_ec.block_totals_madd(cf, pool, b, order), pl),
+                cuda_ms(lambda: cuda_ec.block_totals_madd(cf, pool, b, order), 5), plain_ms,
+                f"{group} N={G * b} B={b}, leaves in order and permuted")
+        lv = _totals_leaves(cf, rng, dg, npad, B, False)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(int(rng.integers(1 << 62)))
+        digits = torch.randint(0, 1 << _FIXED_BASE_BITS, (jb, npad), generator=gen,
+                               device=DEVICE)
+        order = torch.sort(digits, dim=1).indices.reshape(-1)
+        M = order.shape[0]
+        G = M // B
+        del digits
+
+        def sort_copy():
+            return tuple(c[order] for c in lv)
+
+        def old():  # the MSM before: the sorted copy, then K9b over it
+            return cuda_ec.block_totals_madd(cf, sort_copy(), B)
+
+        def fn():
+            return cuda_ec.block_totals_madd(cf, lv, B, order)
+
+        pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_madd_plain(cf, lv, B, order))
+        if max_abs_err(old(), pl):
+            raise AssertionError(f"ec_block_totals_madd (sorted copy, {group}, N={M}) != plain")
+        err = max_abs_err(fn(), pl)
+        del pl
+        live = (~lv[2][order]).reshape(G, B)
+        adds = int(live.sum()) - int(live.any(1).sum())  # the first live leaf copies
+        work = (npad * (2 * eb + 1) + 8 * M + 3 * G * eb,
+                adds * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL)
+        ms = cuda_ms(fn, 5)
+        record("ec_block_totals_madd", err, ms, plain_ms,
+               f"{group} N={M} B={B}, leaves through the sort order, one thread a chain; "
+               "main path (prove)", work)
+        rows.append({"name": "ec_block_totals_madd", "group": group, "N": M, "B": B,
+                     "chains": G, "launches_prove": msms * batches, "threads": G, "ms": ms,
+                     "sorted_copy_ms": cuda_ms(sort_copy, 5), "old_ms": cuda_ms(old, 5),
+                     "plain_ms": plain_ms, **bound(*work)})
+        del lv, order
+        torch.cuda.empty_cache()
+        shapes = [(G, b, False) for G, b in TOTALS_EDGE]
+        shapes.append((sizes["ec_block_totals_add"] // B, B, True))
+        for G, b, main in shapes:
+            M = G * b
+            pts = (tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3)) if main
+                   else _totals_points(cf, rng, dg, M, b))
+
+            def fn():
+                return cuda_ec.block_totals_add(cf, pts, b)
+
+            pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_add_plain(cf, pts, b))
+            lanes = cuda_ec.ec_team_lanes(cf, G)
+            what = f"{group} N={M} B={b}, {G * lanes} threads ({lanes} a chain)"
+            if not main:
+                record("ec_block_totals_add", max_abs_err(fn(), pl), cuda_ms(fn, 5), plain_ms,
+                       what)
+                continue
+            work = (3 * M * eb + 3 * G * eb, (M - G) * fq_muls("jadd", ext) * IMAD_PER_FQ_MUL)
+            ms = cuda_ms(fn, 10)
+            record("ec_block_totals_add", max_abs_err(fn(), pl), ms, plain_ms,
+                   f"{what}; main path (prove)", work)
+            rows.append({"name": "ec_block_totals_add", "group": group, "N": M, "B": b,
+                         "chains": G, "launches_prove": msms * batches, "lanes": lanes,
+                         "threads": G * lanes, "ms": ms, "plain_ms": plain_ms,
+                         **bound(*work)})
+        torch.cuda.empty_cache()
+    return rows
+
+
 class Recorder:
     """Kernel-vs-plain comparisons. The kernel table keeps the times and
     the bound of each kernel's first comparison at a main-path shape."""
@@ -1019,6 +1188,8 @@ def phase_kernels(results: dict, log2: int) -> list:
     torch.cuda.empty_cache()
     jac_shapes = jacobian_shape_checks(record, rng, curve, log2)
     torch.cuda.empty_cache()
+    jac_totals = jacobian_totals_checks(record, rng, curve, log2)
+    torch.cuda.empty_cache()
 
     # the port's MSM on both engines against the host-int MSM, small input
     prng = random.Random(SEED)
@@ -1038,7 +1209,7 @@ def phase_kernels(results: dict, log2: int) -> list:
             if got != want:
                 raise AssertionError(f"port MSM ({engine}) != host MSM ({group}, n={n})")
         log(f"msm {group} n={n}: both engines equal to the host-int MSM")
-    return levels, team, fixed, loop_launches, jac_fixed, jac_shapes
+    return levels, team, fixed, loop_launches, jac_fixed, jac_shapes, jac_totals
 
 
 @contextlib.contextmanager
@@ -1066,18 +1237,17 @@ def jacobian_engine(curve, on: bool = True, log2: int = 20):
 
 
 def jacobian_kernels(record, rng, curve, sizes) -> None:
-    """K8, K9a, K9b and K9c against their plain versions: at 2^14 with the
-    edge cases (P = Q, P = -Q, identity on each side, flagged leaves, with
-    general-Z accumulators) also against the host group; the scans at
-    N = 2^15 (B = 32, repeated leaves for the doubling branch) and a tail
-    B = 5; then at the shapes of the Jacobian prove (K8's widest, K9b,
-    K9c) and the elementwise K9a at the width the leaf branch of a 2^14
-    Jacobian MSM gives it (`leaf_shapes`; K8 at every shape:
-    `jacobian_shape_checks`)."""
+    """K8 and K9a against their plain versions: at 2^14 with the edge cases
+    (P = Q, P = -Q, identity on each side, flagged leaves, with general-Z
+    accumulators) also against the host group; then K8 at the widest shape
+    of the Jacobian prove and the elementwise K9a at the width the leaf
+    branch of a 2^14 Jacobian MSM gives it (`leaf_shapes`; K8 at every
+    shape: `jacobian_shape_checks`; K9b and K9c:
+    `jacobian_totals_checks`)."""
     import torch
 
     from ckb_zkp_tpu_torch.ops import cuda_ec, ec
-    from ckb_zkp_tpu_torch.ops.msm import _SCAN_B, device_group
+    from ckb_zkp_tpu_torch.ops.msm import device_group
 
     n = 1 << 14
     inv2 = (curve.fr.modulus + 1) // 2
@@ -1118,24 +1288,8 @@ def jacobian_kernels(record, rng, curve, sizes) -> None:
         record("ec_madd", max_abs_err(k, pl),
                cuda_ms(lambda: cuda_ec.ec_madd(cf, P, leaves), 20), plain_ms,
                f"{group} n=2^14, flagged leaves")
-        for N, B in ((1 << 15, _SCAN_B), (5 * 64, 5)):
-            X, Y = rand_field(rng, N, cs, dg.fq), rand_field(rng, N, cs, dg.fq)
-            flags = torch.as_tensor(rng.random(N) < 0.1, device=DEVICE)
-            X[1], Y[1], flags[:2] = X[0], Y[0], False  # leaf 0 twice: a doubling
-            pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
-            for c in pts:
-                c[1] = c[0]
-            what = f"{group} N={N} B={B}"
-            for name, args in (("ec_block_totals_madd", ((X, Y, flags), B)),
-                               ("ec_block_totals_add", (pts, B))):
-                kern = getattr(cuda_ec, name[3:])
-                plain = getattr(cuda_ec, name[3:] + "_plain")
-                pl, plain_ms = timed_once(lambda: plain(cf, *args))
-                record(name, max_abs_err(kern(cf, *args), pl),
-                       cuda_ms(lambda: kern(cf, *args), 5), plain_ms, what)
 
     # the shapes of the 2^log2 Jacobian setup and prove; plain timed once
-    B = _SCAN_B
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         cf, cs, ext = dg.cf, dg.cf.coord_shape, dg.cf.ext
@@ -1161,26 +1315,6 @@ def jacobian_kernels(record, rng, curve, sizes) -> None:
                "branch)",
                (8 * n * eb + n, live * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL))
         del P, Q, leaves, pl
-        N = sizes["ec_block_totals_madd"]
-        lv = (rand_field(rng, N, cs, dg.fq), rand_field(rng, N, cs, dg.fq),
-              torch.as_tensor(rng.random(N) < 0.01, device=DEVICE))
-        live = (~lv[2]).reshape(N // B, B)
-        adds = int(live.sum()) - int(live.any(1).sum())  # the first live leaf copies
-        pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_madd_plain(cf, lv, B))
-        record("ec_block_totals_madd", max_abs_err(cuda_ec.block_totals_madd(cf, lv, B), pl),
-               cuda_ms(lambda: cuda_ec.block_totals_madd(cf, lv, B), 3), plain_ms,
-               f"{group} N={N} B={B}; main path (prove)",
-               (N * 2 * eb + N + 3 * (N // B) * eb,
-                adds * fq_muls("jmadd", ext) * IMAD_PER_FQ_MUL))
-        del lv, pl
-        N = sizes["ec_block_totals_add"]
-        pts = tuple(rand_field(rng, N, cs, dg.fq) for _ in range(3))
-        pl, plain_ms = timed_once(lambda: cuda_ec.block_totals_add_plain(cf, pts, B))
-        record("ec_block_totals_add", max_abs_err(cuda_ec.block_totals_add(cf, pts, B), pl),
-               cuda_ms(lambda: cuda_ec.block_totals_add(cf, pts, B), 3), plain_ms,
-               f"{group} N={N} B={B}; main path (prove)",
-               (3 * N * eb + 3 * (N // B) * eb,
-                (N - N // B) * fq_muls("jadd", ext) * IMAD_PER_FQ_MUL))
 
 
 def phase_setup_check(log2: int) -> None:
@@ -1355,12 +1489,25 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
         torch.cuda.synchronize()
         prove_s = time.perf_counter() - t0
         launches = dict(cuda_build.COUNTS)
+        ordered = cuda_build.ORDERED["ec_block_totals_madd"]
+        traced = trace_window_sums(card, curve, run)
     log(f"jacobian prove: {prove_s:.3f} s {json.dumps(stages)} [{card}]")
     log(f"kernel launches in the jacobian prove: {json.dumps(launches)}")
     missing = [k for k in sorted(JAC_PROVE_KERNELS) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the Jacobian prove: {missing}")
     adds, chains = k8_shapes(log2)
+    # K9b and K9c run once a window batch; each batch ends in one chain, each
+    # of the five MSMs in one more (the fold)
+    batches = 5 * (sum(t for _, t in chains) - 1)
+    log(f"jacobian prove: K9b launches {launches['ec_block_totals_madd']} ({ordered} through "
+        f"an order), K9c {launches['ec_block_totals_add']}, window batches {batches}")
+    if not (launches["ec_block_totals_madd"] == launches["ec_block_totals_add"] == ordered
+            == batches):
+        raise AssertionError("the Jacobian prove did not launch K9b through an order and K9c "
+                             "once a window batch")
+    if traced:
+        raise AssertionError("the Jacobian prove's trace holds the sorted copy of the leaves")
     most = {"ec_add": 5 * sum(t for _, t in adds), "ec_add_chain": 5 * sum(t for _, t in chains)}
     log(f"jacobian prove: K8 launches {launches['ec_add']} (at most {most['ec_add']}), "
         f"chain launches {launches['ec_add_chain']} (at most {most['ec_add_chain']})")
@@ -1373,6 +1520,51 @@ def phase_jacobian(card: str, run: dict, log2: int) -> dict:
     log("jacobian prove: the proof equals the RCB engine's for the same (r, s)")
     check_verdicts(curve, params, shape, proof)
     return {"setup_launches": setup_launches, "prove_launches": launches}
+
+
+TRACE_LOG2 = 15  # the smallest square chain whose Jacobian MSMs take K9b's order path
+
+
+def trace_window_sums(card: str, curve, run: dict) -> int:
+    """Sets up (on the engine in force) and proves the 2^TRACE_LOG2 square
+    chain, the prove traced with Python stacks (`profile_prove.
+    row_read_origins`; the trace's cost grows with the ops, not their
+    size), and returns the row reads that an `aten::index` op launched
+    from `_window_sums` (its own frame or a generator in it). Its digits'
+    sort, gather and bucket range are no leaf rows; the sorted copy of the
+    leaves was three such ops a window batch (X, Y, flags), one K9b launch.
+    Fails unless every K9b launch of that prove came through an order."""
+    import torch
+
+    from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.profile_prove import row_read_origins
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    shape = square_chain_shape((1 << TRACE_LOG2) - 2, curve.fr.modulus, seed=SEED % 1000)
+    params = groth16.generate_parameters_from_shape(shape, curve, *run["toxic"], device=DEVICE)
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    origins = row_read_origins(lambda st: groth16.create_proof_from_shape(
+        params, shape, run["r"], run["s"]))
+    traced_s = time.perf_counter() - t0
+    k9b, ordered = cuda_build.COUNTS["ec_block_totals_madd"], cuda_build.ORDERED[
+        "ec_block_totals_madd"]
+    own = {where: n for where, (n, _) in origins.items()
+           if any(f.endswith(": _window_sums")
+                  for f in where.split(" @ ")[1].split(" < ")[:2])}
+    copies = sum(n for where, n in own.items() if where.startswith("aten::index @"))
+    log(f"jacobian prove of 2^{TRACE_LOG2} under the profiler with stacks ({traced_s:.3f} "
+        f"s): K9b launches {k9b} ({ordered} through an order), row reads "
+        f"{sum(n for n, _ in origins.values())}, "
+        f"{sum(ms for _, ms in origins.values()):.3f} ms; launched by _window_sums "
+        f"{sum(own.values())}, of them by aten::index {copies} (the sorted copy: {3 * k9b}; "
+        f"now 0) [{card}]")
+    if not 0 < k9b == ordered:
+        raise AssertionError(f"the traced 2^{TRACE_LOG2} Jacobian prove did not launch K9b "
+                             "through an order")
+    return copies
 
 
 def phase_jacobian_leaf(card: str) -> dict:
@@ -1750,7 +1942,7 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
-    levels, team, fixed, loop_launches, jac_fixed, jac_shapes = phase_kernels(
+    levels, team, fixed, loop_launches, jac_fixed, jac_shapes, jac_totals = phase_kernels(
         results, args.log2)
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
@@ -1759,6 +1951,8 @@ def main() -> int:
         f"{json.dumps(jac_fixed)}")
     log(f"jacobian shapes (K8 and its chain at the prove's shapes, 2^{args.log2}, {card}): "
         f"{json.dumps(jac_shapes)}")
+    log(f"jacobian totals (K9b and K9c at the prove's shapes, 2^{args.log2}, {card}): "
+        f"{json.dumps(jac_totals)}")
     t1 = time.perf_counter()
     phase_setup_check(min(14, args.log2))
     t2 = time.perf_counter()

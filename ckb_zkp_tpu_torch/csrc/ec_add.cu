@@ -22,6 +22,13 @@
 // team's slot from the first step to the last; each step takes the branch
 // jac_add takes (t + t of an infinite t is t), so the bits are the loop's.
 //
+// K9c (zkp_ec_add_totals; replaces ckb_zkp_tpu/ops/pallas_ec.py:290
+// _scan_add_kernel, entry ec_block_totals_add) is the same chain kernel a
+// block a team: from the block's first point, its B - 1 other points
+// added in order, no doublings, so it shares the slot and the level tables.
+// One thread a chain, the first port's design, left K9c's 2048 chains of a
+// 2^20 window batch waiting on one lane's 16 products a step (48 over Fq2).
+//
 // Bound on the H100 by the integer multiply rate: 16 field multiplies an
 // add on the general branch (3x that over Fq2), against 9 coordinates of
 // 64 B (128 B over Fq2) moved; the doubling (7 more) runs only where
@@ -68,12 +75,21 @@ cudaError_t launch_add(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
 template <int EXT, bool SPLIT>
 cudaError_t launch_chain(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
                          uint32_t* oz, const uint32_t* ix, const uint32_t* iy,
-                         const uint32_t* iz, const uint32_t* ax,
-                         const uint32_t* ay, const uint32_t* az,
-                         const Rounds& rounds, long long k, cudaStream_t s) {
-  using L = EcTeam<kNW, EXT, SPLIT>;
+                         const uint32_t* iz, long long is, const uint32_t* ax,
+                         const uint32_t* ay, const uint32_t* az, long long rs,
+                         long long gs, int steps, const Rounds& rounds,
+                         long long k, cudaStream_t s) {
+  using L = EcTeam<kNW, EXT, SPLIT, true>;
   return launch_ec_team<L>(&ec_team_chain<kNW, EXT, SPLIT>, k, s, c, ox, oy,
-                           oz, ix, iy, iz, ax, ay, az, rounds, k);
+                           oz, ix, iy, iz, is, ax, ay, az, rs, gs, steps,
+                           rounds, k);
+}
+
+// the chain kernel's instance for ext and k teams
+decltype(&launch_chain<1, false>) chain_for(int ext, long long k) {
+  return ext == 1 ? &launch_chain<1, false>
+         : ec_split(ext, k) ? &launch_chain<2, true>
+                            : &launch_chain<2, false>;
 }
 
 }  // namespace
@@ -127,10 +143,26 @@ extern "C" int zkp_ec_add_chain(const uint32_t* consts, int ext, void* ox,
   for (int i = 0; i < rounds; ++i) r.dbl[i] = dbl[i];
   auto u = [](const void* p) { return (const uint32_t*)p; };
   auto w = [](void* p) { return (uint32_t*)p; };
-  decltype(&launch_chain<1, false>) f = ext == 1 ? &launch_chain<1, false>
-                                        : ec_split(ext, k) ? &launch_chain<2, true>
-                                                           : &launch_chain<2, false>;
-  const int rc = (int)f(c, w(ox), w(oy), w(oz), u(ix), u(iy), u(iz), u(ax),
-                        u(ay), u(az), r, k, (cudaStream_t)stream);
+  const int rc = (int)chain_for(ext, k)(c, w(ox), w(oy), w(oz), u(ix), u(iy),
+                                        u(iz), 1, u(ax), u(ay), u(az), k, 1,
+                                        rounds, r, k, (cudaStream_t)stream);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// K9c: the ncols block totals of the points (x, y, z), block g the sum of
+// points g*B .. g*B+B-1 from infinity, into (ox, oy, oz).
+extern "C" int zkp_ec_add_totals(const uint32_t* consts, int ext, void* ox,
+                                 void* oy, void* oz, const void* x,
+                                 const void* y, const void* z,
+                                 long long ncols, int B, void* stream) {
+  if (consts[0] != kNW || ncols <= 0 || B <= 0 || (ext != 1 && ext != 2))
+    return (int)cudaErrorInvalidValue;
+  const CurveConsts c = parse_consts(consts);
+  const long long S = 2 * kNW * ext;  // int32 limbs of a coordinate
+  auto u = [](const void* p) { return (const uint32_t*)p; };
+  auto w = [](void* p) { return (uint32_t*)p; };
+  const int rc = (int)chain_for(ext, ncols)(
+      c, w(ox), w(oy), w(oz), u(x), u(y), u(z), B, u(x) + S, u(y) + S,
+      u(z) + S, 1, B, B - 1, Rounds{}, ncols, (cudaStream_t)stream);
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 // The team of lanes that runs one Jacobian point operation on Hopper, and
 // the kernels built on it: K8 (ec_team_add: one complete add a team;
 // ec_team_chain: a chain of doublings and adds a team, the MSM's window
-// folds). Their entry is ec_add.cu.
+// folds, and K9c's block totals: a chain of B adds from a block's first
+// point). Their entry is ec_add.cu.
 //
 // The Jacobian formulas of ec_jac.cuh are long chains of dependent field
 // products: the complete add (_add_core) is 16 of them, the doubling
 // (_double_core) 7. One thread runs them in a row, so a launch of a few
-// points lasts one lane's latency of 16 (or 23) products, and the MSM
-// launches K8 at 1 to 16384 points. Here each product of a level of
+// points, or a few chains, lasts one lane's latency of 16 (or 23) products
+// a step, and the MSM launches K8 at 1 to 16384 points and K9c at 2048
+// chains. Here each product of a level of
 // independent products is one lane's (the levels of the add: Z1Z1, Z2Z2,
 // Z1Z2 | U1, U2, Z2 Z2Z2, Z1 Z1Z1 | S1, S2 | HH, r^2, Z1Z2 H | HHH, V |
 // r (V - X3), S1 HHH; of the doubling: X^2, Y^2, YZ | C = B^2, (X + B)^2,
@@ -20,9 +22,9 @@
 // plain versions'.
 //
 // Two team shapes:
-//   4 lanes (G1; G2 above kEcSplitMax points): each lane one Fe product of a
-//     level (an Fq2 product is field.cuh fe_mul's three Fq products in one
-//     lane) or one linear sequence over all components.
+//   4 lanes (G1; G2 above kEcSplitMax points or chains): each lane one Fe
+//     product of a level (an Fq2 product is field.cuh fe_mul's three Fq
+//     products in one lane) or one linear sequence over all components.
 //   16 lanes (G2 up to kEcSplitMax): each Fq2 product split into Karatsuba's
 //     three Fq products v0, v1, v2 on three lanes (12 lanes at the add's
 //     widest level), then combined into its two components by two lanes; a
@@ -30,7 +32,10 @@
 // Operands and results live in the team's slot of shared memory, in word
 // rows of NW + 1 words (so lanes reading distinct rows hit distinct banks),
 // with __syncwarp(team mask) after every level. The sum's X3, Y3 and Z3
-// overwrite the accumulator rows once no level reads them.
+// overwrite the accumulator rows once no level reads them. The chains
+// stage their next element into the slot's first words by cp.async (16 B a
+// lane, as it lies in device memory) while a step runs, and convert it to
+// word rows once, by the lanes that copied it, as rcb_team.cuh's teams do.
 //
 // Blocks: 256 threads, halved (down to one warp) while the grid would have
 // fewer blocks than the card has SMs, as rcb_team.cuh's teams. A team past
@@ -40,15 +45,15 @@
 #pragma once
 
 #include "ec_jac.cuh"
-#include "rcb_team.cuh"
+#include "rcb_team.cuh"  // (cuda_pipeline.h, ld_row, st_row, sm_count)
 
 namespace zkp {
 namespace {
 
-// G2 points up to this count run split (16 lanes a team); more run 4 lanes
-// a team. On the H100 the split team wins K8 at 2-2048 points (device
+// G2 points (or chains) up to this count run split (16 lanes a team); more
+// run 4 lanes a team. On the H100 the split team wins K8 at 2-2048 points (device
 // 0.0086-0.0130 ms against 0.0131-0.0192 for 4 lanes) and loses at 16384
-// (0.0322 against 0.0214 ms; PERF.md, the K8 per-shape table).
+// (0.0322 against 0.0214 ms; PERF.md, K8 at every shape).
 constexpr long long kEcSplitMax = 2048;
 
 bool ec_split(int ext, long long n) { return ext == 2 && n <= kEcSplitMax; }
@@ -76,8 +81,9 @@ struct Prod {
 };
 
 // One team's lanes and slot. SPLIT (G2 only): 16 lanes, each Fq2 product
-// split over three; else 4 lanes.
-template <int NW, int EXT, bool SPLIT>
+// split over three; else 4 lanes. STAGE: the slot also holds the raw limbs
+// of the next point, copied by cp.async (the chain's; K8 stages none).
+template <int NW, int EXT, bool SPLIT, bool STAGE = false>
 struct EcTeam {
   static_assert(EXT == 2 || !SPLIT, "only an Fq2 product splits");
   using F = Fe<NW, EXT>;
@@ -87,17 +93,21 @@ struct EcTeam {
   static constexpr int CH = 3 * S / 4;          // 16-byte chunks of a point
   static constexpr int PARTS = NFE * EXT;       // SPLIT: 12 Karatsuba part rows
   static constexpr int NROWS = PARTS + (SPLIT ? 12 : 0);
-  // a slot: the word rows, 16-byte aligned
-  static constexpr int WORDS = (NROWS * ROW + 3) / 4 * 4;
+  static constexpr int RAW = STAGE ? 3 * S : 0;  // words of the staged point
+  static_assert(RAW % 4 == 0, "the staged words stay 16-byte aligned");
+  // a slot: the staged words, then the word rows, 16-byte aligned
+  static constexpr int WORDS = (RAW + NROWS * ROW + 3) / 4 * 4;
 
   const int lane;
   const unsigned mask;
+  uint32_t* const raw;
   uint32_t* const rows;
 
   __device__ __forceinline__ explicit EcTeam(uint32_t* smem)
       : lane(threadIdx.x % T),
         mask((0xFFFFFFFFu >> (32 - T)) << (threadIdx.x % 32 / T * T)),
-        rows(smem + threadIdx.x / T * WORDS) {}
+        raw(smem + threadIdx.x / T * WORDS),
+        rows(raw + RAW) {}
 
   // this thread's team in the grid
   static __device__ __forceinline__ long long index() {
@@ -139,6 +149,31 @@ struct EcTeam {
       const int i = q / (S / 4), w = 2 * (q % (S / 4));
       const uint32_t* src = i == 0 ? x : i == 1 ? y : z;
       const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + e * S + 2 * w));
+      uint32_t* d = row(first + i, w / NW) + w % NW;
+      d[0] = (u.x & 0xFFFFu) | (u.y << 16);
+      d[1] = (u.z & 0xFFFFu) | (u.w << 16);
+    }
+  }
+
+  // cp.async of point e of (x, y, z) into raw; chunk q: coordinate
+  // q / (S/4), limbs 4 (q % (S/4)) ..+3
+  __device__ __forceinline__ void stage(const uint32_t* x, const uint32_t* y,
+                                        const uint32_t* z, long long e) const {
+    for (int q = lane; q < CH; q += T) {
+      const int i = q / (S / 4), o = 4 * (q % (S / 4));
+      const uint32_t* src = i == 0 ? x : i == 1 ? y : z;
+      __pipeline_memcpy_async(raw + i * S + o, src + e * S + o, 16);
+    }
+    __pipeline_commit();
+  }
+
+  // this lane's staged chunks -> Fe slots first .. first + 2 as word rows
+  // (the team syncs before reading them)
+  __device__ __forceinline__ void unstage(int first) const {
+    __pipeline_wait_prior(0);
+    for (int q = lane; q < CH; q += T) {
+      const int i = q / (S / 4), w = 2 * (q % (S / 4));
+      const uint4 u = *reinterpret_cast<const uint4*>(raw + i * S + 2 * w);
       uint32_t* d = row(first + i, w / NW) + w % NW;
       d[0] = (u.x & 0xFFFFu) | (u.y << 16);
       d[1] = (u.z & 0xFFFFu) | (u.w << 16);
@@ -356,38 +391,45 @@ __global__ void __launch_bounds__(256)
   t.store(ox, oy, oz, g);
 }
 
-// Rounds of the chain: round r doubles the accumulator dbl[r] times (t + t
-// with jac_add, an infinite accumulator staying as it is), then adds
-// addend r. kChainMax rounds at most.
+// Doublings of the chain's rounds: round r doubles the accumulator dbl[r]
+// times (t + t with jac_add, an infinite accumulator staying as it is)
+// before its add; rounds from n on double none. kChainMax rounds at most.
 constexpr int kChainMax = 64;
 struct Rounds {
   int n;
   unsigned char dbl[kChainMax];
 };
 
-// K8's chain: team g starts from point g of (ix, iy, iz) and runs the
-// rounds, addend r of team g being point r * k + g of (ax, ay, az); the
-// accumulator stays in the slot from the first step to the last.
+// K8's chain and K9c: team g starts from point g * is of (ix, iy, iz) and
+// runs `steps` rounds, round r adding point r * rs + g * gs of (ax, ay, az)
+// after its doublings. The window folds: is = 1, addend r of team g at
+// r * k + g. K9c: the block's first point, then its other B - 1 points
+// (ax one point past the block's first, rs = 1, gs = B, no doublings).
+// The accumulator stays in the slot from the first step to the last; the
+// next addend is staged while a round runs.
 template <int NW, int EXT, bool SPLIT>
 __global__ void __launch_bounds__(256)
     ec_team_chain(CurveConsts c, uint32_t* ox, uint32_t* oy, uint32_t* oz,
                   const uint32_t* ix, const uint32_t* iy, const uint32_t* iz,
-                  const uint32_t* ax, const uint32_t* ay, const uint32_t* az,
+                  long long is, const uint32_t* ax, const uint32_t* ay,
+                  const uint32_t* az, long long rs, long long gs, int steps,
                   Rounds rounds, long long k) {
-  using L = EcTeam<NW, EXT, SPLIT>;
+  using L = EcTeam<NW, EXT, SPLIT, true>;
   extern __shared__ __align__(16) uint32_t smem[];
   const long long g = L::index();
   if (g >= k) return;  // the whole team
   const L t(smem);
-  t.load_point(X1, ix, iy, iz, g);
+  if (steps > 0) t.stage(ax, ay, az, g * gs);
+  t.load_point(X1, ix, iy, iz, g * is);
   t.sync();
-  for (int r = 0; r < rounds.n; ++r) {
-    for (int d = rounds.dbl[r]; d > 0; --d) {
+  for (int r = 0; r < steps; ++r) {
+    for (int d = r < rounds.n ? rounds.dbl[r] : 0; d > 0; --d) {
       if (t.zero(Z1)) break;  // infinity doubles to itself
       t.dbl(c);
     }
-    t.load_point(X2, ax, ay, az, r * k + g);
+    t.unstage(X2);
     t.sync();
+    if (r + 1 < steps) t.stage(ax, ay, az, (r + 1) * rs + g * gs);
     t.add_to_acc(c);
   }
   t.store(ox, oy, oz, g);

@@ -11,8 +11,8 @@ hash of the sources, so a checkout builds its own kernels. There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 
 ``COUNTS`` holds one integer per kernel wrapper; a wrapper adds one where
-it launches its kernel, and nowhere else. ``ORDERED`` counts K2's launches
-that read their leaves through an order (the MSM's all do).
+it launches its kernel, and nowhere else. ``ORDERED`` counts the launches
+of K2 and K9b that read their leaves through an order (the MSMs' all do).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ COUNTS = {
     "probe_xor_grid2d": 0,  # P22
 }
 
-ORDERED = {"scan_prefix_madd": 0}  # K2 launches given an order
+ORDERED = {"scan_prefix_madd": 0, "ec_block_totals_madd": 0}  # launches given an order
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -182,8 +182,10 @@ def lib() -> ctypes.CDLL:
         L.zkp_ec_fixed_base.restype = i
         L.zkp_ec_madd.argtypes = [vp, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_madd.restype = i
-        L.zkp_ec_scan.argtypes = [vp, i, i] + [vp] * 6 + [ll, i, vp]
+        L.zkp_ec_scan.argtypes = [vp, i] + [vp] * 7 + [ll, i, vp]
         L.zkp_ec_scan.restype = i
+        L.zkp_ec_add_totals.argtypes = [vp, i] + [vp] * 6 + [ll, i, vp]
+        L.zkp_ec_add_totals.restype = i
         L.zkp_probe_madd_scan.argtypes = [vp, vp] + [i] * 6 + [vp] * 9 + [ll, i, vp]
         L.zkp_probe_madd_scan.restype = i
         L.zkp_probe_chain_mul.argtypes = [vp, i, i, vp, vp, ll, i, vp]

@@ -14,9 +14,11 @@ formula a lane (4 lanes for G1; for G2 16, each Fq2 product on three, up
 to EC_SPLIT_MAX points), and its chain entry runs a point's doublings and adds in
 one launch (the MSM's window folds); the setup's fixed-base MSM runs K9a
 as one chain of 32 mixed adds a point, reading the window-table rows
-through the scalar's digits, one thread a point; the elementwise K9a and
-K9b/K9c run one thread per element or block of B elements, from infinity
-(one, one, 0), as the TPU kernels do. All run the reference's formulas
+through the scalar's digits, one thread a point; the elementwise K9a runs
+one thread an element. K9b and K9c sum blocks of B elements from infinity
+(one, one, 0), as the TPU kernels do: K9c's block is a chain on K8's team
+(the chain entry's kernel), K9b reads its leaves through the MSM's sort
+order, one thread a chain. All run the reference's formulas
 (`_add_core`, `_madd_core`, `_double_core`) over 32-bit words and are
 bound by the integer multiply rate.
 
@@ -180,44 +182,60 @@ def ec_fixed_base_plain(cf, X, Y, scalars):
 
 
 # ------------------------------------------------------------ K9b / K9c
-def _totals_launch(cf, mode: int, ins, M: int, B: int, count: str):
-    G = M // B
-    dev = ins[0].device
-    for i, t in enumerate(ins[:2]):
-        cuda_build.check_tensor(t, f"{count} input {i}")
-    if mode == 0:
-        cuda_build.check_tensor(ins[2], f"{count} flags", (M,), torch.bool)
-    else:
-        cuda_build.check_tensor(ins[2], f"{count} input 2")
-    T = [torch.empty((G, *cf.coord_shape), dtype=torch.int32, device=dev)
-         for _ in range(3)]
+def _totals_out(cf, G: int, dev):
+    return [torch.empty((G, *cf.coord_shape), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+
+
+def block_totals_madd(cf, leaves, B: int, order=None):
+    """K9b: affine leaves (X, Y, inf) (n,) read through `order` (M,) int64
+    (leaf e of the sums is row order[e]; None: the rows in order, M = n),
+    M = G*B -> (G,) Jacobian block totals, each the sum of its B leaves
+    from infinity, one thread a chain on CUDA. CPU tensors take the plain
+    version. The kernel reads rows as it is told: every order entry must
+    lie in [0, n)."""
+    M = leaves[0].shape[0] if order is None else order.shape[0]
+    _check_blocks(M, B)
+    if leaves[0].device.type == "cpu":
+        return block_totals_madd_plain(cf, leaves, B, order)
+    X, Y, inf = (c.contiguous() for c in leaves)
+    n = X.shape[0]
+    cuda_build.check_tensor(X, "ec_block_totals_madd X")
+    cuda_build.check_tensor(Y, "ec_block_totals_madd Y", X.shape)
+    cuda_build.check_tensor(inf, "ec_block_totals_madd flags", (n,), torch.bool)
+    if order is not None:
+        order = order.contiguous()
+        cuda_build.check_tensor(order, "ec_block_totals_madd order", (M,), torch.int64)
+    T = _totals_out(cf, M // B, X.device)
     rc = cuda_build.lib().zkp_ec_scan(
-        _kconsts(cf).ctypes.data, cf.ext, mode, *(t.data_ptr() for t in T),
-        *(t.data_ptr() for t in ins), G, B, cuda_build.stream_ptr(T[0]))
-    cuda_build.COUNTS[count] += 1
-    cuda_build.check(rc, count)
+        _kconsts(cf).ctypes.data, cf.ext, *_launch_args(T),
+        X.data_ptr(), Y.data_ptr(), inf.data_ptr(),
+        None if order is None else order.data_ptr(), M // B, B,
+        cuda_build.stream_ptr(T[0]))
+    cuda_build.COUNTS["ec_block_totals_madd"] += 1
+    if order is not None:
+        cuda_build.ORDERED["ec_block_totals_madd"] += 1
+    cuda_build.check(rc, "ec_block_totals_madd")
     return tuple(T)
 
 
-def block_totals_madd(cf, leaves, B: int):
-    """K9b: sorted affine leaves (X, Y, inf), M = G*B of them -> (G,)
-    Jacobian block totals, each the sum of its B leaves from infinity."""
-    M = leaves[0].shape[0]
-    _check_blocks(M, B)
-    if leaves[0].device.type == "cpu":
-        return block_totals_madd_plain(cf, leaves, B)
-    ins = [c.contiguous() for c in leaves]
-    return _totals_launch(cf, 0, ins, M, B, "ec_block_totals_madd")
-
-
 def block_totals_add(cf, pts, B: int):
-    """K9c: Jacobian points (M = G*B) -> (G,) block totals."""
+    """K9c: Jacobian points (M = G*B) -> (G,) block totals: on CUDA each
+    block a chain on K8's team (`ec_team_lanes` lanes); plain on CPU."""
     M = pts[0].shape[0]
     _check_blocks(M, B)
     if pts[0].device.type == "cpu":
         return block_totals_add_plain(cf, pts, B)
     ins = [c.contiguous() for c in pts]
-    return _totals_launch(cf, 1, ins, M, B, "ec_block_totals_add")
+    for i, t in enumerate(ins):
+        cuda_build.check_tensor(t, f"ec_block_totals_add input {i}", ins[0].shape)
+    T = _totals_out(cf, M // B, ins[0].device)
+    rc = cuda_build.lib().zkp_ec_add_totals(
+        _kconsts(cf).ctypes.data, cf.ext, *_launch_args(T), *_launch_args(ins), M // B, B,
+        cuda_build.stream_ptr(T[0]))
+    cuda_build.COUNTS["ec_block_totals_add"] += 1
+    cuda_build.check(rc, "ec_block_totals_add")
+    return tuple(T)
 
 
 def _totals_plain(cf, elems, B: int, step):
@@ -229,8 +247,11 @@ def _totals_plain(cf, elems, B: int, step):
     return acc
 
 
-def block_totals_madd_plain(cf, leaves, B: int):
-    """Plain K9b: a loop of B plain mixed adds."""
+def block_totals_madd_plain(cf, leaves, B: int, order=None):
+    """Plain K9b: the leaves gathered through `order`, then a loop of B
+    plain mixed adds."""
+    if order is not None:
+        leaves = tuple(c[order] for c in leaves)
     return _totals_plain(cf.plain, leaves, B, ec_madd_formula)
 
 

@@ -23,7 +23,8 @@ The Jacobian engine is the reference's other branch of `DeviceCurveGroup`
 (`_use_rcb` False, `ops/msm.py:363`): `_msm_impl` (`:830-848`) runs the
 windows one at a time through `_window_sum` (`:594-636`), whose bucket
 boundaries come from `_prefix_boundary_leaf` and `_prefix_boundary_jac`
-(`:670-733`) over sorted affine leaves: K9b block totals, a K9c level,
+(`:670-733`) over sorted affine leaves (here read through the sort
+order, never copied in it): K9b block totals, a K9c level,
 a Hillis-Steele top and K8 combines, and the window folds (the Horner
 sum over the window sums, `_window_sum`'s (2^c - 1) E_last) are one K8
 chain launch each; the fixed-base MSM (`_fixed_base_impl`, `:883-899`,
@@ -416,7 +417,10 @@ class DeviceCurveGroup:
         """sum_b b * B_b for each row of (k, n) digits (reference
         `_window_sum`, `ops/msm.py:594-636`): sort the leaves by digit, take
         the inclusive prefixes E_b at the bucket boundaries, and telescope
-        (nb - 1) E_last - sum_{b < nb-1} E_b. The reference sums the E_b as
+        (nb - 1) E_last - sum_{b < nb-1} E_b. The leaves are read through
+        the sort order, not copied in it: K9b and the within-block rows
+        take row order[j, i] of the n leaves where the reference gathers
+        the sorted leaves of each window. The reference sums the E_b as
         the last element of a Hillis-Steele scan; the port adds them in a
         halving tree, the same point with nb - 2 adds. The reference doubles
         with `ec_double` (`p_double`); here and in the fold the port doubles
@@ -430,7 +434,7 @@ class DeviceCurveGroup:
         order = torch.sort(digits, dim=1).indices
         ar = torch.arange(nb, device=digits.device).expand(digits.shape[0], nb)
         cnt = torch.searchsorted(torch.gather(digits, 1, order), ar.contiguous(), right=True)
-        E = self._prefix_boundary_leaf(tuple(c[order] for c in leaves), cnt - 1)
+        E = self._prefix_boundary_leaf(leaves, order, cnt - 1)
         e_last = tuple(e[:, nb - 1] for e in E)
         sum_e = self._sum_dim1(tuple(e[:, : nb - 1] for e in E))
         addends = tuple(torch.stack(ab) for ab in zip(self.p_neg(e_last), self.p_neg(sum_e)))
@@ -451,23 +455,29 @@ class DeviceCurveGroup:
         z = point_select(self.cf, m, (self.cf.zeros(m.shape),), (self.cf.ones(m.shape),))[0]
         return (x, y, z)
 
-    def _prefix_boundary_leaf(self, leaves, q):
-        """Inclusive prefix at each q (q = -1: infinity) over (k, n) sorted
-        affine leaves, q (k, Q) (reference `ops/msm.py:670-704`): K9b block
-        totals, their prefix before each query's block, and the query's
-        within-block rows. n must be a multiple of _SCAN_B * _LEAF_GROUPS
-        (2^15 leaves); else `prefix_at_indices` with K9a leaf combines."""
-        k, n = leaves[0].shape[:2]
+    def _prefix_boundary_leaf(self, leaves, order, q):
+        """Inclusive prefix at each q (q = -1: infinity) over k rows of
+        sorted affine leaves, row j's leaf i being leaves[order[j, i]]
+        (leaves (n,), order (k, n) int64), q (k, Q) (reference
+        `ops/msm.py:670-704`): K9b block totals read through the order,
+        their prefix before each query's block, and the query's
+        within-block rows read through it too. n must be a multiple of
+        _SCAN_B * _LEAF_GROUPS (2^15 leaves); else `prefix_at_indices`
+        with K9a leaf combines over a sorted copy of the leaves (below 2^15
+        points, off the 2^20 path; the copy is at most 2^15 rows a
+        window)."""
+        k, n = order.shape
         B = _SCAN_B
         if n % (B * _LEAF_GROUPS):
             lid = (self.cf.zeros(), self.cf.zeros(),
-                   torch.ones((), dtype=torch.bool, device=leaves[2].device))
+                   torch.ones((), dtype=torch.bool, device=order.device))
             return prefix_at_indices(
-                self.p_add, leaves, self.p_identity(), q,
+                self.p_add, tuple(c[order] for c in leaves), self.p_identity(), q,
                 leaf_combine=lambda acc, lv: ec_madd(self.cf, acc, lv),
                 leaf_identity=lid, promote=self._promote_leaves)
-        totals = block_totals_madd(self.cf, _flat(leaves), B)
-        return self._combine_blocks(_unflat(totals, k), leaves, q, self._promote_leaves)
+        totals = block_totals_madd(self.cf, leaves, B, order=order.reshape(-1))
+        return self._combine_blocks(_unflat(totals, k), leaves, q, self._promote_leaves,
+                                    order)
 
     def _prefix_boundary_jac(self, pts, q):
         """The Jacobian-level recursion over (k, n) points (reference
@@ -482,15 +492,17 @@ class DeviceCurveGroup:
         totals = block_totals_add(self.cf, _flat(pts), _SCAN_B)
         return self._combine_blocks(_unflat(totals, k), pts, q)
 
-    def _combine_blocks(self, totals, elems, q, promote=None):
+    def _combine_blocks(self, totals, elems, q, promote=None, order=None):
         """prefix(totals, q // B - 1) + elems' within-block prefix up to q,
-        infinity where q < 0: the common tail of both boundary levels."""
+        infinity where q < 0: the common tail of both boundary levels
+        (`order`: elems are rows read through it, as in
+        `within_block_prefix`)."""
         B = _SCAN_B
         qc = q.clamp(min=0)
         gq = torch.div(qc, B, rounding_mode="floor")
         before = self._prefix_boundary_jac(totals, gq - 1)
         part2 = within_block_prefix(self.p_add, elems, self.p_identity(), gq,
-                                    qc - gq * B, B, promote)
+                                    qc - gq * B, B, promote, order)
         out = self.p_add(before, part2)
         return point_select(self.cf, q >= 0, out, self.p_identity(q.shape))
 

@@ -55,15 +55,23 @@ def _take_rows(elems, idx):
     return tuple(x[rows, idx] for x in elems)
 
 
-def within_block_prefix(combine, elems, identity, gq, r, block: int, promote=None):
+def within_block_prefix(combine, elems, identity, gq, r, block: int, promote=None,
+                        order=None):
     """For each query, the combine of rows gq*block .. gq*block + r of
     elems: the query's rows are gathered (promoted, if given), those past
     r masked to the identity, and reduced by a Hillis-Steele scan over the
-    block axis. elems (k, n, ...), gq and r (k, Q) -> (k, Q, ...). The
-    reference's `_within_block_partial` (`ops/msm.py:651-668`) and the
-    same step of `prefix_at_indices`."""
+    block axis. elems (k, n, ...), or with `order` (k, n) int64 the rows
+    elems (n', ...) read through it (row i of row j is elems[order[j,
+    i]]: the order's entries are gathered, then the rows); gq and r (k, Q)
+    -> (k, Q, ...). The reference's `_within_block_partial`
+    (`ops/msm.py:651-668`) and the same step of `prefix_at_indices`."""
     ar = torch.arange(block, device=gq.device)
-    rows = _take_rows(elems, gq.unsqueeze(-1) * block + ar)  # (k, Q, block, ...)
+    at = gq.unsqueeze(-1) * block + ar  # (k, Q, block)
+    if order is None:
+        rows = _take_rows(elems, at)
+    else:
+        idx = _take_rows((order,), at)[0]
+        rows = tuple(x[idx] for x in elems)
     if promote is not None:
         rows = promote(rows)
     keep = ar <= r.unsqueeze(-1)

@@ -3,7 +3,8 @@ fixed-base MSMs, one tree's kernels against another's, in one call on the
 card: K3 and K4 at each level, K2 at the prove's window batch, K5 at each
 of its shapes, K6's fixed-base MSM at the setup's width; on the Jacobian
 engine K8 at each shape of its prove, its window folds, and K9a's
-fixed-base MSM at the setup's width.
+fixed-base MSM at the setup's width, and K9b and K9c at the prove's
+window batch.
 
     python3 ckb_zkp_tpu_torch/probes/levels.py --parent DIR [--log2 20] [--reps 20]
         [--out OUT]
@@ -31,7 +32,12 @@ the tree has it and else as the loop of K8 launches it replaced; and K9a's
 fixed-base MSM of 2^log2 scalars, as `cuda_ec.ec_fixed_base` where the
 tree has it and else as the per-window loop of elementwise K9a
 (`jacobian_window_loop`), its totals normalized before they are hashed (the
-two differ before normalization only for a zero scalar);
+two differ before normalization only for a zero scalar); K9b
+(`cuda_ec.block_totals_madd`) over (jb * npad, 32) leaves through the sort
+order of random 8-bit digits over npad leaves (1% flagged) where the tree
+reads the leaves through an order, else as the sorted copy of the leaves
+and the tree's K9b over it, as its MSM ran them; K9c (`cuda_ec.block_totals_add`) over
+jb * npad / 32 points;
 G1 and G2. Each call is timed by CUDA events and by the device time of its
 kernels in a `torch.profiler` trace (for a launch of a few points, events
 measure mostly the host's launch overhead). Every output of every run must
@@ -139,6 +145,8 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
     jac_fixed_base = getattr(cuda_ec, "ec_fixed_base", None)
     fixed_base = getattr(cuda_rcb, "rcb_fixed_base", None)
     fused = "order" in inspect.signature(cuda_rcb.scan_prefix_madd).parameters
+    # K9b through an order
+    ordered_k9b = "order" in inspect.signature(cuda_ec.block_totals_madd).parameters
     curve = get_curve("bn254")
     out = []
     for gi, group in enumerate(("g1", "g2")):
@@ -162,6 +170,29 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
                 else:  # the parent's window: sorted copies, then K2
                     def fn():
                         return cuda_rcb.scan_prefix_madd(rg, xw[order], yw[order], B)
+                teams = M // B
+            elif name == "ec_block_totals_madd":
+                X, Y = (rand_field(rng, nleaves, cs, dg.fq) for _ in range(2))
+                inf = torch.as_tensor(rng.random(nleaves) < 0.01, device="cuda")
+                lv = (X, Y, inf)
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(int(rng.integers(1 << 62)))
+                digits = torch.randint(0, 256, (M // nleaves, nleaves), generator=gen,
+                                       device="cuda")
+                order = torch.sort(digits, dim=1).indices.reshape(-1)
+                del X, Y, inf, digits
+                if ordered_k9b:
+                    def fn():
+                        return cuda_ec.block_totals_madd(dg.cf, lv, B, order)
+                else:  # the parent's window: sorted copies, then K9b
+                    def fn():
+                        return cuda_ec.block_totals_madd(dg.cf, tuple(c[order] for c in lv), B)
+                teams = M // B
+            elif name == "ec_block_totals_add":
+                pts = tuple(rand_field(rng, M, cs, dg.fq) for _ in range(3))
+
+                def fn():
+                    return cuda_ec.block_totals_add(dg.cf, pts, B)
                 teams = M // B
             elif name == "fixed_base":
                 X, Y = (rand_field(rng, 32 * 256, cs, dg.fq).reshape(32, 256, *cs)
@@ -244,10 +275,13 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
             n = reps if M < 1 << 20 else max(3, reps // 4)
             row = {"name": name, "group": group, "M": M, "B": B, "sha256": h.hexdigest()[:16],
                    "ms": cuda_ms(fn, n), "device_ms": device_ms(fn, n)}
-            if name in ("ec_add", "ec_add_chain"):
-                if ec_lanes:
+            if name in ("ec_add", "ec_add_chain") or (
+                    ordered_k9b and name.startswith("ec_block_totals")):
+                if name == "ec_block_totals_madd":
+                    row["threads"] = teams
+                elif ec_lanes:
                     row["threads"] = teams * ec_lanes(dg.cf, teams)
-            elif team_shape and "fixed_base" not in name and (
+            elif team_shape and "fixed_base" not in name and not name.startswith("ec_") and (
                     fused or name not in ("scan_prefix_madd", "rcb_add")):
                 lanes, row["block"] = team_shape(rg, teams)
                 row["threads"] = teams * lanes
@@ -256,7 +290,8 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
             torch.cuda.empty_cache()
     return {"tree": tree, "build_s": cuda_build.BUILD_INFO.get("seconds"), "fused_k2": fused,
             "fixed_base_kernel": fixed_base is not None, "k8_chain": chain is not None,
-            "k9a_fixed_base_kernel": jac_fixed_base is not None, "shapes": out}
+            "k9a_fixed_base_kernel": jac_fixed_base is not None,
+            "k9b_through_order": ordered_k9b, "shapes": out}
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -267,7 +302,8 @@ _REGS = re.compile(r"Used (\d+) registers")
 _KERNEL = re.compile(r"\d+(rcb_team_scan|rcb_team_madd_scan|rcb_team_add|rcb_scan_kernel|"
                      r"rcb_add_kernel|rcb_team_fixed_base|rcb_fixed_base_kernel|"
                      r"rcb_madd_kernel|ec_team_add|ec_team_chain|"
-                     r"ec_add_kernel|ec_fixed_base_kernel|ec_madd_kernel)I(\w+?)EEv")
+                     r"ec_add_kernel|ec_fixed_base_kernel|ec_madd_kernel|ec_scan_kernel)"
+                     r"I(\w+?)EEv")
 
 
 def registers(log: str) -> list:
@@ -323,6 +359,8 @@ def main() -> int:
     shapes += [("ec_add", n, None, None) for n, _ in adds]
     shapes += [("ec_add_chain", k, 32 if k == 1 else 2, None) for k, _ in chains]
     shapes.append(("jac_fixed_base", sizes["ec_fixed_base"], 32, None))
+    shapes.append(("ec_block_totals_madd", sizes["ec_block_totals_madd"], 32, 1 << args.log2))
+    shapes.append(("ec_block_totals_add", sizes["ec_block_totals_add"], 32, None))
     parent = os.path.abspath(args.parent)
     runs = []
     for tree in (parent, REPO, REPO, parent):
@@ -338,7 +376,8 @@ def main() -> int:
         print(f"{tree}: built in {runs[-1]['build_s']} s, K2 fused with the order: "
               f"{runs[-1]['fused_k2']}, fixed-base kernel: "
               f"{runs[-1]['fixed_base_kernel']}, K8 chain: {runs[-1]['k8_chain']}, K9a "
-              f"fixed-base kernel: {runs[-1]['k9a_fixed_base_kernel']}", flush=True)
+              f"fixed-base kernel: {runs[-1]['k9a_fixed_base_kernel']}, K9b through the "
+              f"order: {runs[-1].get('k9b_through_order')}", flush=True)
     summary = []
     for i in range(len(runs[0]["shapes"])):
         rows = [r["shapes"][i] for r in runs]

@@ -16,7 +16,10 @@ launch shape (grid and block, from the trace's kernel records): each
 shape's launches and device ms. With `--setup` the timed and profiled
 runs are setups instead (no prove). `--engine jacobian` runs
 setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
-card's device groups).
+card's device groups). `--origins` adds one more profiled run with Python
+stacks and splits its row-read kernels by the lines of the package that
+launched them (launches and device ms a chain of the package's frames,
+innermost first).
 Prints the card's name and power limit beside every number. Needs a CUDA
 card.
 """
@@ -68,6 +71,10 @@ def _timed(run, reps: int, card: str, what: str, log2: int) -> None:
     print(json.dumps({"stage_median_s": med, "card": card}))
 
 
+def _is_read(name: str) -> bool:
+    return "gather" in name or "index" in name
+
+
 def _profiled(run, card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,7 +90,7 @@ def _profiled(run, card: str) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
-    reads = {n: v for n, v in by_name.items() if "gather" in n or "index" in n}
+    reads = {n: v for n, v in by_name.items() if _is_read(n)}
     print(json.dumps({"profiled_s": wall, "device_busy_s": busy,
                       "device_idle_share": 1 - busy / wall,
                       "kernel_launches": len(kernels),
@@ -95,6 +102,39 @@ def _profiled(run, card: str) -> None:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
     for (name, grid, block), (n, ms) in sorted(_by_shape(prof).items()):
         print(f"shape: {ms:10.3f} ms {n:6d} x  {name} grid {grid} block {block}")
+
+
+def row_read_origins(run) -> dict:
+    """One profiled run of run({}) with Python stacks: its row-read kernels
+    grouped by the op that launched them and the package's frames above it
+    ("op @ file(line): function < ...", innermost first, up to three
+    frames) -> (launches, device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True,
+                 experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True)
+                 ) as prof:
+        run({})
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        reads = [k for k in getattr(e, "kernels", []) if _is_read(k.name)]
+        if e.device_type != torch.autograd.DeviceType.CPU or not reads:
+            continue
+        frames = [f for f in e.stack if "ckb_zkp_tpu_torch" in f and "profile_prove" not in f]
+        where = e.name + " @ " + (
+            " < ".join(f.split("ckb_zkp_tpu_torch/")[-1] for f in frames[:3]) or "?")
+        n, ms = out.get(where, (0, 0.0))
+        out[where] = (n + len(reads), ms + sum(k.duration for k in reads) / 1e3)
+    return out
+
+
+def _origins(run, card: str) -> None:
+    out = row_read_origins(run)
+    for where, (n, ms) in sorted(out.items(), key=lambda kv: -kv[1][1]):
+        print(f"row read origin: {ms:10.3f} ms {n:6d} x  {where} [{card}]")
+    print(json.dumps({"row_read_origins": {w: {"launches": n, "ms": ms}
+                                           for w, (n, ms) in out.items()}, "card": card}))
 
 
 # the port's kernels (csrc/): their own names in the trace's demangled ones
@@ -130,6 +170,8 @@ def main() -> int:
                     help="time and profile the setup instead of the prove")
     ap.add_argument("--engine", choices=("rcb", "jacobian"), default="rcb",
                     help="the MSM engine of setup and prove")
+    ap.add_argument("--origins", action="store_true",
+                    help="split the row reads by the package lines that launched them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: needs a CUDA card", file=sys.stderr)
@@ -150,6 +192,8 @@ def main() -> int:
     if args.setup:
         _timed(setup, args.reps, card, "setup", args.log2)
         _profiled(setup, card)
+        if args.origins:
+            _origins(setup, card)
         return 0
     r, s = 17, 19
 
@@ -164,6 +208,8 @@ def main() -> int:
         "after_warmup": held, "after_timed": torch.cuda.memory_allocated()},
         "card": card}))
     _profiled(prove, card)
+    if args.origins:
+        _origins(prove, card)
     return 0
 
 

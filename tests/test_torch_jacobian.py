@@ -102,24 +102,32 @@ def _leaves(group, n, seed):
     return sel, rdg.encode_points(sel)
 
 
+@pytest.mark.parametrize("ordered", [False, True], ids=["in-order", "through-an-order"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_block_totals_match_jax_loop(group):
+def test_block_totals_match_jax_loop(group, ordered):
     """K9b and K9c (plain) at G = 8 blocks of B = 32 against an eager loop
     of the JAX package's `ec_add` from infinity (the reference of
     `tests/test_msm_scan_kernels.py:47-56`); K9c over general-Z points.
-    The JAX side sees the shapes of the test above only, so its eager
-    primitives are compiled once."""
+    Through an order: K9b reads the leaves through a seeded random
+    permutation, and the JAX loop runs over the leaves `np.take` gathers
+    in that order. The JAX side sees the shapes of the test above only, so
+    its eager primitives are compiled once."""
     rdg, dg = ref_device_group(CURVE, group), device_group(CURVE, group, "cpu")
     cf = dg.cf
     B, G = 32, 8
     _, enc = _leaves(group, G * B, 3)
     aff = _t(enc)
-    jac = dg.p_double(aff)
-    for elems, got in (
-        (aff, cuda_ec.block_totals_madd(cf, (aff[0], aff[1], cf.is_zero(aff[2])), B)),
-        (jac, cuda_ec.block_totals_add(cf, jac, B)),
-    ):
-        blocked = [to_numpy(c).reshape(G, B, *c.shape[1:]) for c in elems]
+    lv = (aff[0], aff[1], cf.is_zero(aff[2]))
+    if ordered:
+        order = np.random.default_rng(17).permutation(G * B)
+        cases = [([np.take(np.asarray(c), order, axis=0) for c in enc],
+                  cuda_ec.block_totals_madd(cf, lv, B, order=torch.as_tensor(order)))]
+    else:
+        jac = dg.p_double(aff)
+        cases = [([to_numpy(c) for c in aff], cuda_ec.block_totals_madd(cf, lv, B)),
+                 ([to_numpy(c) for c in jac], cuda_ec.block_totals_add(cf, jac, B))]
+    for elems, got in cases:
+        blocked = [c.reshape(G, B, *c.shape[1:]) for c in elems]
         acc = rdg.p_identity((G,))
         for b in range(B):
             acc = ref_ec.ec_add(rdg.cf, acc, tuple(c[:, b] for c in blocked))
@@ -137,23 +145,33 @@ def _running_sums(host, pts):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_prefix_boundaries_with_a_k9c_level(group, monkeypatch):
     """`_prefix_boundary_leaf` and `_prefix_boundary_jac` against host-int
-    running sums, on two rows of 128 sorted leaves, with the tiling
-    thresholds patched small: K9b runs on the leaves, a K9c level on their
-    block totals, and a Hillis-Steele scan on the top."""
+    running sums, on two rows of 128 sorted leaves that arrive unsorted, in
+    one shuffled pool of 256 leaves, with each row's sort order into it,
+    as `_window_sums` passes them; the tiling thresholds patched small:
+    K9b runs on the leaves through the order, a K9c level on their block
+    totals, and a Hillis-Steele scan on the top."""
     monkeypatch.setattr(msm, "_LEAF_GROUPS", 1)
     monkeypatch.setattr(msm, "_JAC_TOP", 2)
     calls = []
     for name in ("block_totals_madd", "block_totals_add"):
         fn = getattr(msm, name)
-        monkeypatch.setattr(msm, name, lambda cf, e, B, fn=fn, name=name:
-                            calls.append((name, e[0].shape[0])) or fn(cf, e, B))
+
+        def record(cf, e, B, fn=fn, name=name, **kw):
+            rows = e[0] if kw.get("order") is None else kw["order"]
+            calls.append((name, rows.shape[0]))
+            return fn(cf, e, B, **kw)
+
+        monkeypatch.setattr(msm, name, record)
     dg = device_group(CURVE, group, "cpu")
     host = dg.host_group
     rows = [_leaves(group, 128, 11 + j) for j in range(2)]
-    leaves = tuple(torch.stack([_t(enc)[i] for _, enc in rows]) for i in range(3))
-    leaves = leaves[:2] + (dg.cf.is_zero(leaves[2]),)
+    flat = tuple(torch.cat([_t(enc)[i] for _, enc in rows]) for i in range(3))
+    perm = np.random.default_rng(23).permutation(256)  # pool row p: leaf perm[p]
+    pool = tuple(c[torch.as_tensor(perm)] for c in flat)
+    pool = pool[:2] + (dg.cf.is_zero(pool[2]),)
+    order = torch.as_tensor(np.argsort(perm)).reshape(2, 128)
     q = torch.tensor([[-1, 0, 31, 32, 100, 127], [127, 7, -1, 64, 96, 33]])
-    got = _decode(dg, dg._prefix_boundary_leaf(leaves, q))
+    got = _decode(dg, dg._prefix_boundary_leaf(pool, order, q))
     want = []
     for (pts, _), qs in zip(rows, q.tolist()):
         sums = _running_sums(host, pts)
@@ -161,6 +179,7 @@ def test_prefix_boundaries_with_a_k9c_level(group, monkeypatch):
     assert _affine(got) == _affine(want)
     assert calls == [("block_totals_madd", 256), ("block_totals_add", 64)]
     # the Jacobian level alone, over general-Z points (40 padded to 64)
+    leaves = tuple(c[order] for c in pool)
     pts = dg.p_double(dg._promote_leaves(tuple(c[:, :40] for c in leaves)))
     qj = torch.tensor([[39, 0, 12], [-1, 38, 31]])
     got = _decode(dg, dg._prefix_boundary_jac(pts, qj))

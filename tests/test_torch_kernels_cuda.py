@@ -160,6 +160,34 @@ def test_jacobian_shapes_every_shape_compared(smoke):
                for r in rows)
 
 
+def test_jacobian_totals_every_shape_compared(smoke):
+    """K9b (leaves in order and through a permutation) and K9c at one
+    block, 67 blocks of B = 5, 4229 blocks and the G2 team boundary (2048,
+    2049 chains), then at a 2^14 prove's shapes, K9b through a real sort
+    order, G1 and G2, bit for bit against their plain versions
+    (`jacobian_totals_checks`)."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None):
+        assert err == 0, what
+        seen.append(name)
+
+    rows = smoke.jacobian_totals_checks(record, np.random.default_rng(6), get_curve("bn254"),
+                                        14)
+    sizes = smoke.path_shapes(14, 256)
+    assert [(r["name"], r["group"], r["N"]) for r in rows] == [
+        (name, g, sizes[name]) for g in ("g1", "g2")
+        for name in ("ec_block_totals_madd", "ec_block_totals_add")]
+    n = len(smoke.TOTALS_EDGE) + 1
+    assert seen.count("ec_block_totals_madd") == seen.count("ec_block_totals_add") == 2 * n
+    assert all(r["bound_ms"] > 0 for r in rows)
+    assert all(r["old_ms"] > 0 for r in rows if r["name"] == "ec_block_totals_madd")
+
+
 def test_k6_device_setup_equals_host_mode(smoke):
     smoke.phase_setup_check(10)
 
