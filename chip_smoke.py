@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's Groth16 BN254 setup and prover on one GPU.
+"""Run the PyTorch/CUDA port's Groth16 setup and prover on one GPU, on BN254
+and on BLS12-381.
 
     python3 chip_smoke.py              # phases at 2^20 (probes 2^21); needs one CUDA card
     python3 chip_smoke.py --log2 14    # the same at a 2^14 slice
@@ -59,7 +60,21 @@ Jacobian MSM of 2^14 points, the
 widest that still runs the elementwise K9a (`_prefix_boundary_leaf`'s
 leaf branch, `leaf_shapes`), against the host ints, with that K9a's
 launches counted from those two MSMs alone (`phase_jacobian_leaf`); (7)
-the probes (`ckb_zkp_tpu_torch/probes/`): K2a and K2b (G1, G2) and the
+BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
+K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
+version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
+prove, G1 and G2 (`phase_wide_kernels`: K1 at 0, 1, p - 1 and R and at the
+setup's normalization width, K5 at P + P, P - P and identities also
+against the host group, then `fixed_base_checks` with the plain version
+on the first WIDE_FB_PLAIN_ROWS points at the setup's width, `team_checks`
+and `scan_level_checks`), the port's MSM against the host ints and the
+Jacobian engine's refusal at 12 words (it has no 12-word kernel: a launch
+raises); the 2^14 setup check; the 2^log2 slice (setup, proves, verdicts,
+memory), which must launch the 12-word K6 5 times and every 12-word K1-K5
+(`cuda_build.WIDE`); the front ends on Mini (random and no-zk proofs
+verify, a wrong public input is refused); and the 2^14 setup check's keys
+through the key, proof and vk bytes, the decoded keys proving the same
+proof; (8) the probes (`ckb_zkp_tpu_torch/probes/`): K2a and K2b (G1, G2) and the
 scan probes' kernels P-tot, P-prepk and P-chain (G1, every K and block
 size) against their plain versions at edge shapes (the probes' own checks) and at 2^(log2 + 1); the g-major P-tot and
 P-prepk (P12, P13) and P-tot on the tensor-core Montgomery reduction
@@ -79,9 +94,10 @@ entries each).
 
 Bounds: the least time the card could take for a kernel's work at that
 shape, the larger of its bytes (each input read once, each output written
-once; an Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s and its 32-bit
-multiply instructions (an 8-word CIOS product is 2 * 8^2 + 8 word
-products, each a low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD
+once; an Fq element is 16 int32 limbs, 64 B, and 24 at BLS12-381, 96 B)
+over 3.35 TB/s and its 32-bit multiply instructions (an NW-word CIOS
+product is 2 NW^2 + NW word products, each a low and a high IMAD: 272
+IMADs at 8 words, 600 at 12; Fq2 is 3 Fq products) over 64 IMAD
 per SM per clock at the SM's maximum clock, counting the multiplies this
 run's data needs (a flagged leaf or an add to infinity needs none), and
 int8 tensor-core operations over 1,979 TOPS (P15; the tensor-core
@@ -93,7 +109,9 @@ these functions, so `library_ms` is null, except for P15 (one
 `torch.bitwise_xor(a, b, out=o)`): yardsticks the port never calls.
 
 The last line is {"ok": true, "device": {...}}; before it come the card's
-name and power limit and one JSON line with the kernel table. Without a
+name and power limit and one JSON line with the kernel table (a row for
+each 8-word kernel and one, named "<kernel>_nw12", for each 12-word
+instance of K1-K6, its launches from the BLS12-381 slice). Without a
 CUDA device, or without the rest of the repository, it exits non-zero and
 prints no result.
 """
@@ -111,8 +129,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 from ckb_zkp_tpu_torch.probes.common import (  # noqa: E402
-    FQ_BYTES, IMAD_PER_FQ_MUL, bound, cuda_ms, fq_muls, imad_rate, max_abs_err,
-    rand_field, smi)
+    FQ_BYTES, IMAD_PER_FQ_MUL, bound, cuda_ms, fq_bytes, fq_muls, imad_per_mul, imad_rate,
+    max_abs_err, rand_field, smi)
 from ckb_zkp_tpu_torch.probes.levels import device_ms  # noqa: E402
 
 SEED = 20261016
@@ -412,7 +430,7 @@ def team_checks(record, rng, curve, log2: int) -> list:
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
-        eb = ext * FQ_BYTES
+        eb, imad = ext * fq_bytes(dg.fq.L), imad_per_mul(dg.fq.L)
         msms = 4 if group == "g1" else 1  # MSMs of each group in a prove
         shapes = [(M, B, "random" if o else "identity", False) for M, B, o in K2_EDGE]
         shapes.append((k * npad, _RCB_B, "sorted digits", True))
@@ -443,7 +461,7 @@ def team_checks(record, rng, curve, log2: int) -> list:
             err = max_abs_err(out[0] + out[1], pl[0] + pl[1])
             del out, pl
             work = (M * eb + (0 if order is None else 8 * M) + 3 * M * eb
-                    + 3 * (M // B) * eb, live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL)
+                    + 3 * (M // B) * eb, live * fq_muls("madd", ext) * imad)
             rows.append(team_row(record, rg, "scan_prefix_madd", group, M, B, M // B, fn,
                                  err, plain_ms, work, main,
                                  msms * -(-nwin // k) if main else 0,
@@ -463,7 +481,7 @@ def team_checks(record, rng, curve, log2: int) -> list:
                 lambda: chunked_plain(cuda_rcb.rcb_add_plain, rg, P, Q))
             err = max_abs_err(fn(), pl)
             del pl
-            work = (9 * n * eb, n * fq_muls("add", ext) * IMAD_PER_FQ_MUL)
+            work = (9 * n * eb, n * fq_muls("add", ext) * imad)
             rows.append(team_row(record, rg, "rcb_add", group, n, None, n, fn, err,
                                  plain_ms, work, main, launches, f"{group} n={n}"))
             del P, Q
@@ -510,7 +528,7 @@ def scan_level_checks(record, rng, curve, log2: int) -> list:
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
-        eb = ext * FQ_BYTES
+        eb, imad = ext * fq_bytes(dg.fq.L), imad_per_mul(dg.fq.L)
         shapes = [(name, M, B, False) for M, B in SCAN_EDGE
                   for name in ("scan_prefix_add", "scan_total_add")]
         shapes += [(name, M, B, True) for name, M, B in scan_levels(log2)]
@@ -527,7 +545,7 @@ def scan_level_checks(record, rng, curve, log2: int) -> list:
             lanes = chains * team
             w_out = 3 * M * eb if name == "scan_prefix_add" else 0
             work = (3 * M * eb + w_out + 3 * chains * eb,
-                    M * fq_muls("add", ext) * IMAD_PER_FQ_MUL)
+                    M * fq_muls("add", ext) * imad)
             ms = cuda_ms(lambda: kern(rg, pts, B), 5)
             record(name, max_abs_err(k, pl), ms, plain_ms,
                    f"{group} N={M} B={B}, {chains} chains, {lanes} threads in blocks of "
@@ -573,7 +591,8 @@ def fixed_base_scalars(rng, n: int, r: int):
     return s
 
 
-def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
+def fixed_base_checks(record, rng, curve, log2: int,
+                      plain_rows: int | None = None) -> tuple[list, dict]:
     """K6's fixed-base kernel (G1, G2) against its plain version, bit for
     bit, on random window tables: at the point counts of FB_EDGE with the
     edge scalars of `fixed_base_scalars`, then at the setup's width
@@ -585,7 +604,11 @@ def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
     the live steps this run's digits need (11 field products a step, 42
     over Fq2) and the bytes (scalars, the tables once, the totals), the
     registers and spills from the build log. Returns the rows and the
-    elementwise K6's launches in the loop's checked runs (one a group)."""
+    elementwise K6's launches in the loop's checked runs (one a group).
+    `plain_rows`: at the setup's width, the plain version runs on that
+    leading slice of the points only (its time is the slice's), and the
+    loop is not run at 12 words (the elementwise K6 has no 12-word
+    instance)."""
     import torch
 
     from ckb_zkp_tpu_torch.ops import cuda_build, cuda_rcb
@@ -601,7 +624,8 @@ def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
-        eb = ext * FQ_BYTES
+        eb, imad = ext * fq_bytes(dg.fq.L), imad_per_mul(dg.fq.L)
+        nw = dg.fq.L // 2
         rows_tab = cuda_rcb.FB_WINDOWS * cuda_rcb.FB_ROWS
         X, Y = (rand_field(rng, rows_tab, cs, dg.fq).reshape(
             cuda_rcb.FB_WINDOWS, cuda_rcb.FB_ROWS, *cs) for _ in range(2))
@@ -615,34 +639,41 @@ def fixed_base_checks(record, rng, curve, log2: int) -> tuple[list, dict]:
             def plain(rg_, s):
                 return cuda_rcb.rcb_fixed_base_plain(rg_, X, Y, s[0])
 
-            pl, plain_ms = timed_once(lambda: chunked_plain(plain, rg, (sc,)))
+            k = n if plain_rows is None or not main else min(n, plain_rows)
+            pl, plain_ms = timed_once(lambda: chunked_plain(plain, rg, (sc[:k],)))
             out = fn()
-            err = max_abs_err(out, pl)
+            err = max_abs_err(tuple(c[:k] for c in out), pl)
             del pl
             what = f"{group} n={n}, {cuda_rcb.FB_WINDOWS} windows"
             if not main:
                 record("rcb_fixed_base", err, cuda_ms(fn, 5), plain_ms, what)
                 continue
-            before = cuda_build.COUNTS["rcb_madd"]
-            lp = loop(rg, X, Y, sc)
-            loop_launches += cuda_build.COUNTS["rcb_madd"] - before
-            if max_abs_err(out, lp):
-                raise AssertionError(f"rcb_fixed_base != the per-window loop ({group})")
-            del out, lp
+            if nw == 8:
+                before = cuda_build.COUNTS["rcb_madd"]
+                lp = loop(rg, X, Y, sc)
+                loop_launches += cuda_build.COUNTS["rcb_madd"] - before
+                if max_abs_err(out, lp):
+                    raise AssertionError(f"rcb_fixed_base != the per-window loop ({group})")
+                del lp
+            del out
             live = sum(int((((sc >> sh) & 0xFF) != 0).sum()) for sh in (0, 8))
             work = (n * cuda_rcb.FB_LIMBS * 4 + 2 * rows_tab * eb + 3 * n * eb,
-                    live * fq_muls("madd", ext) * IMAD_PER_FQ_MUL)
+                    live * fq_muls("madd", ext) * imad)
             ms = cuda_ms(fn, 5)
-            loop_ms = cuda_ms(lambda: loop(rg, X, Y, sc), 2)
-            kern = "rcb_fixed_base_kernel<8,1>" if ext == 1 else "rcb_team_fixed_base<8,2,0>"
+            loop_ms = cuda_ms(lambda: loop(rg, X, Y, sc), 2) if nw == 8 else None
+            kern = (f"rcb_fixed_base_kernel<{nw},1>" if ext == 1
+                    else f"rcb_team_fixed_base<{nw},2,0>")
             reg = [x for x in regs if x[0] == kern]
             record("rcb_fixed_base", err, ms, plain_ms,
-                   f"{what}, {live} live steps; main path (setup); the per-window loop "
-                   f"{loop_ms:.6f} ms", work)
+                   f"{what}, {live} live steps; main path (setup)"
+                   + (f"; the per-window loop {loop_ms:.6f} ms" if loop_ms else "")
+                   + (f"; plain on the first {k} points" if k < n else ""), work,
+                   **({"plain_rows": k} if k < n else {}))
             rows.append({"group": group, "n": n, "windows": cuda_rcb.FB_WINDOWS,
                          "live_steps": live, "ms": ms, "device_ms": device_ms(fn, 3),
-                         "plain_ms": plain_ms, "loop_ms": loop_ms,
-                         "loop_device_ms": device_ms(lambda: loop(rg, X, Y, sc), 2),
+                         "plain_ms": plain_ms, "plain_rows": k, "loop_ms": loop_ms,
+                         "loop_device_ms": (device_ms(lambda: loop(rg, X, Y, sc), 2)
+                                            if nw == 8 else None),
                          "kernel": kern, "registers": reg[0][1] if reg else None,
                          "spill_bytes": reg[0][2] if reg else None, **bound(*work)})
             torch.cuda.empty_cache()
@@ -1051,7 +1082,8 @@ class Recorder:
     def __init__(self, results: dict):
         self.results = results
 
-    def __call__(self, name, err, ms, plain_ms, what, work=None, library_ms=None):
+    def __call__(self, name, err, ms, plain_ms, what, work=None, library_ms=None,
+                 plain_rows=None):
         line = (f"kernel {name} [{what}]: max_abs_err={err} kernel_ms={ms:.6f} "
                 f"plain_ms={plain_ms:.6f}")
         b = bound(*work) if work is not None else None
@@ -1064,40 +1096,41 @@ class Recorder:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if b is not None and "ms" not in r:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+            if plain_rows is not None:  # the plain version ran on a leading slice
+                r["plain_rows"] = plain_rows
 
 
-def phase_kernels(results: dict, log2: int) -> list:
-    import numpy as np
+def mul_edge_check(record, rng, df, what: str) -> None:
+    """K1 against its plain version at 2^16 elements of df, the first four
+    products 0 * (p - 1), 1 * (p - 1), (p - 1)^2 and R * R also against
+    their values."""
     import torch
 
-    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    n = 1 << 16
+    p = df.spec.modulus
+    a = rand_field(rng, n, (df.L,), df)
+    b = rand_field(rng, n, (df.L,), df)
+    a[:4] = df.encode([0, 1, p - 1, df.R])
+    b[:4] = df.encode([p - 1, p - 1, p - 1, df.R])
+    k = df.mul(a, b)
+    pl = df.plain.mul(a, b)
+    torch.cuda.synchronize()
+    if df.decode(k[:4]) != [0, p - 1, 1, df.R * df.R % p]:
+        raise AssertionError(f"mont_mul edge values wrong ({what})")
+    record("mont_mul", max_abs_err(k, pl), cuda_ms(lambda: df.mul(a, b), 50),
+           cuda_ms(lambda: df.plain.mul(a, b), 5), f"{what} n=2^16")
+
+
+def add_edge_checks(record, rng, curve, madd: bool) -> None:
+    """K5 (and with `madd` the elementwise K6, with flagged leaves) at
+    2^14 G1 and G2 points whose first rows are P + P, P + (-P) and
+    identity operands, against the plain version and those rows against
+    the host group."""
+    import torch
+
     from ckb_zkp_tpu_torch.ops import cuda_rcb
     from ckb_zkp_tpu_torch.ops.msm import device_group
 
-    rng = np.random.default_rng(SEED)
-    curve = get_curve("bn254")
-    record = Recorder(results)
-
-    # K1 at 2^16 Fr and Fq elements with 0, 1, p - 1 and R mod p
-    n = 1 << 16
-    g1 = device_group(curve, "g1", DEVICE)
-    for fname, df in (("fr", g1.fr), ("fq", g1.fq)):
-        p = df.spec.modulus
-        a = rand_field(rng, n, (df.L,), df)
-        b = rand_field(rng, n, (df.L,), df)
-        a[:4] = df.encode([0, 1, p - 1, df.R])
-        b[:4] = df.encode([p - 1, p - 1, p - 1, df.R])
-        k = df.mul(a, b)
-        pl = df.plain.mul(a, b)
-        torch.cuda.synchronize()
-        if df.decode(k[:4]) != [0, p - 1, 1, df.R * df.R % p]:
-            raise AssertionError(f"mont_mul edge values wrong ({fname})")
-        record("mont_mul", max_abs_err(k, pl),
-               cuda_ms(lambda: df.mul(a, b), 50),
-               cuda_ms(lambda: df.plain.mul(a, b), 5), f"bn254 {fname} n=2^16")
-
-    # K5 and K6 at 2^14 G1 and G2 points with P+P, P+(-P), identity
-    # operands and (K6) flagged leaves, checked against the host group
     n = 1 << 14
     for group in ("g1", "g2"):
         dg = device_group(curve, group, DEVICE)
@@ -1120,10 +1153,13 @@ def phase_kernels(results: dict, log2: int) -> list:
         torch.cuda.synchronize()
         got = dg.decode_points_host(rg.to_jacobian(tuple(c[:k_edge] for c in k)))
         if got != want:
-            raise AssertionError(f"rcb_add edge cases wrong ({group})")
+            raise AssertionError(f"rcb_add edge cases wrong ({curve.name} {group})")
         record("rcb_add", max_abs_err(k, pl),
                cuda_ms(lambda: rg.add(P, Q), 20),
-               cuda_ms(lambda: cuda_rcb.rcb_add_plain(rg, P, Q), 2), f"{group} n=2^14")
+               cuda_ms(lambda: cuda_rcb.rcb_add_plain(rg, P, Q), 2),
+               f"{curve.name} {group} n=2^14")
+        if not madd:
+            continue
         xq, yq, zq = dg.encode_points(right)
         leaves = (rand_field(rng, n, cs, dg.fq), rand_field(rng, n, cs, dg.fq),
                   torch.as_tensor(rng.random(n) < 0.1, device=DEVICE))
@@ -1139,6 +1175,24 @@ def phase_kernels(results: dict, log2: int) -> list:
                cuda_ms(lambda: rg.madd(P, leaves), 20),
                cuda_ms(lambda: cuda_rcb.rcb_madd_plain(rg, P, leaves), 2),
                f"{group} n=2^14, flagged leaves")
+
+
+def phase_kernels(results: dict, log2: int) -> list:
+    import numpy as np
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    rng = np.random.default_rng(SEED)
+    curve = get_curve("bn254")
+    record = Recorder(results)
+
+    g1 = device_group(curve, "g1", DEVICE)
+    for fname, df in (("fr", g1.fr), ("fq", g1.fq)):
+        mul_edge_check(record, rng, df, f"bn254 {fname}")
+    add_edge_checks(record, rng, curve, madd=True)
 
     # every kernel at the shapes the slice gives it, K1 also with a
     # broadcast constant operand (to_mont/from_mont read it with step 0);
@@ -1317,9 +1371,10 @@ def jacobian_kernels(record, rng, curve, sizes) -> None:
         del P, Q, leaves, pl
 
 
-def phase_setup_check(log2: int) -> None:
+def phase_setup_check(log2: int, curve_name: str = "bn254") -> dict:
     """The device setup of a (2^log2 - 2)-constraint square chain against
-    the host-int instance map and the host-mode setup, point for point."""
+    the host-int instance map and the host-mode setup, point for point.
+    Returns the shape and the device-branch parameters."""
     import torch
 
     from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
@@ -1327,7 +1382,7 @@ def phase_setup_check(log2: int) -> None:
     from ckb_zkp_tpu_torch.schemes import groth16
     from ckb_zkp_tpu_torch.schemes.groth16.qap import qap_matrices
 
-    curve = get_curve("bn254")
+    curve = get_curve(curve_name)
     fr = curve.fr.modulus
     prng = random.Random(SEED + 1)
     shape = square_chain_shape((1 << log2) - 2, fr, seed=SEED % 997)
@@ -1337,7 +1392,8 @@ def phase_setup_check(log2: int) -> None:
     got = tuple(qap.df.decode(x[:nv]) for x in qap.evaluations_at(toxic[-1]))
     if got != qap.evaluations_at_host(toxic[-1]):
         raise AssertionError("device instance map != host instance map")
-    log(f"setup check 2^{log2}: device instance map (u, v, w) equals the host ints")
+    log(f"setup check {curve_name} 2^{log2}: device instance map (u, v, w) equals the "
+        "host ints")
     dev = groth16.generate_parameters_from_shape(shape, curve, *toxic, device=DEVICE)
     host = groth16.generate_parameters_from_shape(
         shape, curve, *toxic, device=DEVICE, host_mode=True)
@@ -1351,17 +1407,20 @@ def phase_setup_check(log2: int) -> None:
         pad = torch.cat([d[2][:off], d[2][off + n :]])
         if bool(pad.any()):
             raise AssertionError(f"{name}: padding rows are not at infinity")
-        log(f"setup check 2^{log2}: {name} {n} points equal, "
+        log(f"setup check {curve_name} 2^{log2}: {name} {n} points equal, "
             f"{d[0].shape[0] - n} padding rows at infinity")
     if dev.vk != host.vk:
         raise AssertionError("device-branch and host-mode verifying keys differ")
+    return {"curve": curve, "shape": shape, "params": dev}
 
 
-def phase_slice(card: str, log2: int) -> dict:
+def phase_slice(card: str, log2: int, curve_name: str = "bn254") -> dict:
     """Device setup, warm-up prove, timed prove and verdicts of the
-    (2^log2 - 2)-constraint square chain. Returns the run (curve, shape,
-    toxic waste, parameters, r, s, proof) with the kernel launches of the
-    setup and of the timed prove."""
+    (2^log2 - 2)-constraint square chain on `curve_name`. Returns the run
+    (curve, shape, toxic waste, parameters, r, s, proof) with the kernel
+    launches of the setup and of the timed prove, each also as its 12-word
+    launches (`cuda_build.WIDE`): on BLS12-381 the setup must launch K6's
+    12-word instance 5 times and the prove every 12-word K1-K5."""
     import torch
 
     from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
@@ -1369,12 +1428,13 @@ def phase_slice(card: str, log2: int) -> dict:
     from ckb_zkp_tpu_torch.ops import cuda_build
     from ckb_zkp_tpu_torch.schemes import groth16
 
-    curve = get_curve("bn254")
+    curve = get_curve(curve_name)
+    wide = curve_name == "bls12_381"
     fr = curve.fr.modulus
     prng = random.Random(SEED)
     t0 = time.perf_counter()
     shape = square_chain_shape((1 << log2) - 2, fr, seed=SEED % 1000)
-    log(f"slice: square_chain_shape((1 << {log2}) - 2): m = 2^{log2}, "
+    log(f"slice {curve_name}: square_chain_shape((1 << {log2}) - 2): m = 2^{log2}, "
         f"{shape.num_variables} variables, built in {time.perf_counter() - t0:.3f} s")
     toxic = [prng.randrange(1, fr) for _ in range(5)]
     setup_t: dict = {}
@@ -1385,11 +1445,15 @@ def phase_slice(card: str, log2: int) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup_launches = dict(cuda_build.COUNTS)
-    log(f"setup: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
-    log(f"kernel launches in the setup: {json.dumps(setup_launches)}")
+    setup_wide = dict(cuda_build.WIDE)
+    log(f"setup {curve_name}: {setup_s:.3f} s {json.dumps(setup_t)} [{card}]")
+    log(f"kernel launches in the setup: {json.dumps(setup_launches)}; 12-word "
+        f"{json.dumps(setup_wide)}")
     if setup_launches["rcb_fixed_base"] != 5 or setup_launches["rcb_madd"]:
         raise AssertionError("the setup did not launch K6's fixed-base kernel once a query "
                              "(5 times) and the elementwise K6 (rcb_madd) no time")
+    if setup_wide["rcb_fixed_base"] != (5 if wide else 0):
+        raise AssertionError("the setup launched K6's fixed-base kernel at the wrong width")
     r, s = prng.randrange(1, fr), prng.randrange(1, fr)
     t0 = time.perf_counter()
     groth16.create_proof_from_shape(params, shape, r, s)
@@ -1404,21 +1468,24 @@ def phase_slice(card: str, log2: int) -> dict:
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = dict(cuda_build.COUNTS)
+    prove_wide = dict(cuda_build.WIDE)
     ordered = cuda_build.ORDERED["scan_prefix_madd"]
     peak = torch.cuda.max_memory_allocated()
     after = torch.cuda.memory_allocated()
-    log(f"timed prove: {prove_s:.3f} s, peak device memory {peak} bytes [{card}]")
+    log(f"timed prove {curve_name}: {prove_s:.3f} s, peak device memory {peak} bytes "
+        f"[{card}]")
     log(f"device memory held: {held} bytes after the warm-up prove, {after} "
         f"after the timed prove")
     if after > held + (1 << 20):
         raise AssertionError("a prove left device memory behind")
     log(f"prove stages (s): {json.dumps(stages)} [{card}]")
-    log(f"kernel launches in the timed prove: {json.dumps(launches)}")
+    log(f"kernel launches in the timed prove: {json.dumps(launches)}; 12-word "
+        f"{json.dumps(prove_wide)}")
     rcb_prove = (set(KERNELS) - SETUP_KERNELS - LOOP_KERNELS - JAC_SETUP_KERNELS
                  - JAC_PROVE_KERNELS - JAC_LEAF_KERNELS - PROBE_KERNELS)
-    missing = [k for k in sorted(rcb_prove) if launches[k] <= 0]
+    missing = [k for k in sorted(rcb_prove) if (prove_wide if wide else launches)[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched by the prove: {missing}")
+        raise AssertionError(f"kernels not launched by the prove ({curve_name}): {missing}")
     log(f"K2 launches through a sort order in the timed prove: {ordered} of "
         f"{launches['scan_prefix_madd']}")
     if ordered != launches["scan_prefix_madd"]:
@@ -1427,7 +1494,9 @@ def phase_slice(card: str, log2: int) -> dict:
     check_verdicts(curve, params, shape, proof)
     return {"curve": curve, "shape": shape, "toxic": toxic, "params": params,
             "r": r, "s": s, "proof": proof, "setup_launches": setup_launches,
-            "prove_launches": launches}
+            "prove_launches": launches, "setup_wide": setup_wide,
+            "prove_wide": prove_wide, "setup_s": setup_s, "prove_s": prove_s,
+            "setup_stages": setup_t, "prove_stages": stages}
 
 
 def check_verdicts(curve, params, shape, proof) -> None:
@@ -1616,6 +1685,185 @@ def phase_jacobian_leaf(card: str) -> dict:
         raise AssertionError(f"the {n}-point Jacobian MSMs launched the elementwise K9a "
                              f"{launches['ec_madd']} times, not {2 * per_msm}")
     return launches
+
+
+# The 12-word instances of K1-K6 (BLS12-381's Fq and Fq2): a row each in
+# the kernel table, beside the 8-word rows, with launches from the
+# BLS12-381 slice (`cuda_build.WIDE`)
+WIDE_ROWS = {f"{k}_nw12": k for k in ("mont_mul", "scan_prefix_madd", "scan_prefix_add",
+                                      "scan_total_add", "rcb_add", "rcb_fixed_base")}
+# at the setup's width, plain K6 at 12 words runs on this many leading
+# points only (the whole 2^20 G2 plain version takes about a minute)
+WIDE_FB_PLAIN_ROWS = 1 << 16
+
+
+def phase_wide_kernels(results: dict, log2: int) -> tuple:
+    """BLS12-381's 12-word K1-K6 against their plain versions, bit for bit:
+    K1 on Fq at 2^16 elements with 0, 1, p - 1 and R mod p, then at the
+    setup's normalization width (2^log2 Fq rows); K5 at 2^14 G1 and G2
+    points with P + P, P + (-P) and identity operands, also against the
+    host group; K6's fixed-base kernel, K2 and K5 (`team_checks`), K3 and
+    K4 (`scan_level_checks`) at their edge shapes and at the shapes of a
+    2^log2 BLS12-381 setup and prove (K6's plain version on the first
+    WIDE_FB_PLAIN_ROWS points at the setup's width); then the port's G1
+    and G2 MSM against the host-int MSM, and the Jacobian engine's refusal
+    at 12 words. Rows are recorded as "<kernel>_nw12"."""
+    import numpy as np
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    rng = np.random.default_rng(SEED + 12)
+    curve = get_curve("bls12_381")
+    rec = Recorder(results)
+
+    def record(name, *args, **kw):
+        rec(name + "_nw12", *args, **kw)
+
+    df = device_group(curve, "g1", DEVICE).fq
+    before = cuda_build.WIDE["mont_mul"]
+    mul_edge_check(record, rng, df, "bls12_381 fq")
+    if cuda_build.WIDE["mont_mul"] <= before:
+        raise AssertionError("BLS12-381 Fq's K1 did not launch the 12-word instance")
+    n = 1 << log2
+    a = rand_field(rng, n, (df.L,), df)
+    b = rand_field(rng, n, (df.L,), df)
+    pl, plain_ms = timed_once(lambda: df.plain.mul(a, b))
+    record("mont_mul", max_abs_err(df.mul(a, b), pl), cuda_ms(lambda: df.mul(a, b), 10),
+           plain_ms, f"bls12_381 fq n={n} a*b (the setup's normalization); main path",
+           (3 * n * fq_bytes(df.L), n * imad_per_mul(df.L)))
+    del a, b
+    add_edge_checks(record, rng, curve, madd=False)
+    torch.cuda.empty_cache()
+    fixed, _ = fixed_base_checks(record, rng, curve, log2, plain_rows=WIDE_FB_PLAIN_ROWS)
+    torch.cuda.empty_cache()
+    team = team_checks(record, rng, curve, log2)
+    levels = scan_level_checks(record, rng, curve, log2)
+    torch.cuda.empty_cache()
+
+    prng = random.Random(SEED + 12)
+    for group, n in (("g1", 700), ("g2", 300)):
+        dg = device_group(curve, group, DEVICE)
+        host = dg.host_group
+        gen = curve.g1_gen if group == "g1" else curve.g2_gen
+        base = [host.mul(gen, prng.randrange(1, curve.fr.modulus)) for _ in range(16)]
+        pts = [base[i % 16] for i in range(n)]
+        pts[3] = host.infinity
+        sc = [prng.randrange(curve.fr.modulus) for _ in range(n)]
+        sc[5] = 0
+        P, S = dg.encode_points(pts), dg.encode_scalars(sc)
+        if dg.decode_point(dg.msm(P, S)) != host.msm(pts, sc):
+            raise AssertionError(f"port MSM != host MSM (bls12_381 {group}, n={n})")
+        log(f"msm bls12_381 {group} n={n}: equal to the host-int MSM")
+        with jacobian_engine(curve):
+            try:
+                dg.msm(P, S)
+            except RuntimeError as e:
+                log(f"msm bls12_381 {group} on the Jacobian engine refused: {e}")
+            else:
+                raise AssertionError("a 12-word Jacobian MSM ran: it has no 12-word kernel")
+    return levels, team, fixed
+
+
+def phase_wide_frontends(card: str) -> None:
+    """BLS12-381 through the reference's front ends on the card: the Mini
+    circuit's `generate_random_parameters`, then `create_random_proof` and
+    `create_proof_no_zk`; each proof verifies and the wrong public input
+    is refused."""
+    from ckb_zkp_tpu_torch.circuits import Mini
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    curve = get_curve("bls12_381")
+    rng = random.Random(SEED + 2)
+    t0 = time.perf_counter()
+    params = groth16.generate_random_parameters(Mini.power_off(), curve, rng, device=DEVICE)
+    circuit = Mini.power_on(2, 3, 10)
+    pvk = groth16.prepare_verifying_key(curve, params.vk)
+    for proof in (groth16.create_random_proof(params, circuit, rng),
+                  groth16.create_proof_no_zk(params, circuit)):
+        ok = groth16.verify_proof(curve, pvk, proof, [10])
+        bad = groth16.verify_proof(curve, pvk, proof, [11])
+        if ok is not True or bad is not False:
+            raise AssertionError("a Mini proof on BLS12-381 does not verify, or a wrong "
+                                 "public input does")
+    log(f"front ends bls12_381: Mini set up, proved (random and no-zk) and verified, "
+        f"wrong public input refused, {time.perf_counter() - t0:.3f} s [{card}]")
+
+
+def phase_wide_bytes(card: str, run: dict) -> dict:
+    """The keys of a BLS12-381 setup check (`run`) through
+    `parameters_to_bytes` and `parameters_from_bytes` (the padded layout on
+    the card), a prove with the decoded keys equal to one with the
+    original keys for the same (r, s), and the proof and verifying key
+    through their codecs. Returns the seconds of each step."""
+    import torch
+
+    from ckb_zkp_tpu_torch.schemes import groth16
+    from ckb_zkp_tpu_torch.schemes.groth16 import serialize
+
+    curve, shape, params = run["curve"], run["shape"], run["params"]
+    secs: dict = {}
+    t0 = time.perf_counter()
+    data = serialize.parameters_to_bytes(params)
+    secs["parameters_to_bytes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = serialize.parameters_from_bytes(curve, data, DEVICE)
+    torch.cuda.synchronize()
+    secs["parameters_from_bytes"] = time.perf_counter() - t0
+    if back.vk != params.vk or not back.padded_queries:
+        raise AssertionError("decoded BLS12-381 keys: another verifying key or layout")
+    r, s = 5, 6
+    want = groth16.create_proof_from_shape(params, shape, r, s)
+    t0 = time.perf_counter()
+    got = groth16.create_proof_from_shape(back, shape, r, s)
+    secs["prove_decoded_keys"] = time.perf_counter() - t0
+    if (got.a, got.b, got.c) != (want.a, want.b, want.c):
+        raise AssertionError("the decoded BLS12-381 keys prove another proof")
+    pb = serialize.proof_to_bytes(curve, got)
+    back_proof = serialize.proof_from_bytes(curve, pb)
+    vb = serialize.vk_to_bytes(curve, params.vk)
+    if ((back_proof.a, back_proof.b, back_proof.c) != (got.a, got.b, got.c)
+            or serialize.vk_from_bytes(curve, vb) != params.vk):
+        raise AssertionError("the BLS12-381 proof or verifying key codec does not round trip")
+    log(f"bytes bls12_381 2^{shape.num_variables.bit_length() - 1}: {len(data)} B of keys, "
+        f"{len(pb)} B a proof, {len(vb)} B of vk; the decoded keys prove the same proof; "
+        f"seconds {json.dumps(secs)} [{card}]")
+    return secs
+
+
+def phase_wide(results: dict, card: str, log2: int) -> dict:
+    """The BLS12-381 phase: the 12-word kernels (`phase_wide_kernels`), the
+    2^min(14, log2) device setup against host mode (`phase_setup_check`),
+    the 2^log2 slice's setup, proves and verdicts (`phase_slice`), the
+    front ends on Mini and the key, proof and vk bytes of the setup
+    check's keys. Returns the slice's run with each part's seconds."""
+    import torch
+
+    marks = [time.perf_counter()]
+    levels, team, fixed = phase_wide_kernels(results, log2)
+    log(f"scan levels bls12_381 (K3, K4 at 12 words, 2^{log2}, {card}): "
+        f"{json.dumps(levels)}")
+    log(f"team shapes bls12_381 (K2, K5 at 12 words, 2^{log2}, {card}): {json.dumps(team)}")
+    log(f"fixed base bls12_381 (K6 at 12 words, 2^{log2}, {card}): {json.dumps(fixed)}")
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    check = phase_setup_check(min(14, log2), "bls12_381")
+    marks.append(time.perf_counter())
+    run = phase_slice(card, log2, "bls12_381")
+    del run["params"]
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    phase_wide_frontends(card)
+    marks.append(time.perf_counter())
+    run["bytes_s"] = phase_wide_bytes(card, check)
+    marks.append(time.perf_counter())
+    run["seconds"] = dict(zip(("kernels", "setup_check", "slice", "front_ends", "bytes"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    log(f"bls12_381 phase seconds: {json.dumps(run['seconds'])} [{card}]")
+    return run
 
 
 def phase_probes(results: dict, log2: int) -> dict:
@@ -1960,11 +2208,15 @@ def main() -> int:
     t3 = time.perf_counter()
     jac = phase_jacobian(card, run, args.log2)
     leaf = phase_jacobian_leaf(card)
+    run.pop("params")  # the BN254 keys' device memory, before the BLS12-381 slice
     t4 = time.perf_counter()
-    probes = phase_probes(results, args.log2 + 1)
+    wide = phase_wide(results, card, args.log2)
     t5 = time.perf_counter()
+    probes = phase_probes(results, args.log2 + 1)
+    t6 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
-        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, probes {t5 - t4:.3f} [{card}]")
+        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, bls12_381 {t5 - t4:.3f}, "
+        f"probes {t6 - t5:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -1983,6 +2235,23 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for row, name in WIDE_ROWS.items():
+        r = results[row]
+        src, replaces = KERNELS[name]
+        # K6 from the setup; K1 from the setup (its normalization) and the
+        # timed prove; K2-K5 from the timed prove
+        launches = (wide["setup_wide"][name] if name in SETUP_KERNELS
+                    else wide["prove_wide"][name]
+                    + (wide["setup_wide"][name] if name == "mont_mul" else 0))
+        if launches <= 0:
+            raise AssertionError(f"{row} was not launched on the BLS12-381 path")
+        table.append({
+            "name": row, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -16,9 +16,17 @@
 
 namespace zkp {
 
-// Only NW = 8 (BN254) is instantiated; BLS12-381 (NW = 12) comes later.
+// Word counts of the instances. K1-K6 (mont_mul.cu, rcb_team_scan.cu via
+// rcb_scan.cu modes 0-2, rcb_add.cu, rcb_fixed_base.cu) are built for both
+// kNW (BN254) and kNW12 (BLS12-381) and pick one from consts[0]; every
+// other entry (the Jacobian engine's, the elementwise K6, K2a, K2b and the
+// probes) is built for kNW only and refuses any other width.
 constexpr int kNW = 8;
+constexpr int kNW12 = 12;
 constexpr int kThreads = 128;
+
+// consts[0] names one of the two instances of K1-K6
+inline bool rcb_width(uint32_t nw) { return nw == kNW || nw == kNW12; }
 
 // constants arrive as a flat uint32 buffer from the host
 // (cuda_field.kernel_consts):

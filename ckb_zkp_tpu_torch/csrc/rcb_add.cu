@@ -12,24 +12,33 @@
 // rows straight into the team's word rows, and the sum leaves in 16-B
 // stores by the team. At 2^17 points the bound is the integer multiply
 // rate (12 field multiplies an add, 3x that over Fq2, against 9
-// coordinates of 64 B, 128 B over Fq2), and the team's extra instructions
-// make G1 slower there than one thread a point (PERF.md). The entry
-// launches on the caller's stream, allocates nothing, does not synchronise
-// and returns cudaGetLastError().
+// coordinates of 4 NW B, twice that over Fq2), and the team's extra
+// instructions make G1 slower there than one thread a point (PERF.md).
+// Instances at NW = 8 (BN254) and 12 (BLS12-381), picked by consts[0].
+// The entry launches on the caller's stream, allocates nothing, does not
+// synchronise and returns cudaGetLastError().
 #include "rcb_team.cuh"
 
 using namespace zkp;
 
 namespace {
 
-template <int EXT, bool SPLIT>
+template <int NW, int EXT, bool SPLIT>
 cudaError_t launch(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
                    uint32_t* oz, const uint32_t* x1, const uint32_t* y1,
                    const uint32_t* z1, const uint32_t* x2, const uint32_t* y2,
                    const uint32_t* z2, long long n, cudaStream_t s) {
-  using L = Team<kNW, EXT, SPLIT, 0>;
-  return launch_team<L>(&rcb_team_add<kNW, EXT, SPLIT>, EXT, n, s, c, ox, oy,
+  using L = Team<NW, EXT, SPLIT, 0>;
+  return launch_team<L>(&rcb_team_add<NW, EXT, SPLIT>, EXT, n, s, c, ox, oy,
                         oz, x1, y1, z1, x2, y2, z2, n);
+}
+
+// the launcher of width NW for (ext, n)
+template <int NW>
+decltype(&launch<NW, 1, false>) pick(int ext, long long n) {
+  return ext == 1 ? &launch<NW, 1, false>
+         : team_split(ext, n) ? &launch<NW, 2, true>
+                              : &launch<NW, 2, false>;
 }
 
 }  // namespace
@@ -38,16 +47,14 @@ extern "C" int zkp_rcb_add(const uint32_t* consts, int ext, void* ox,
                            void* oy, void* oz, const void* x1, const void* y1,
                            const void* z1, const void* x2, const void* y2,
                            const void* z2, long long n, void* stream) {
-  if (consts[0] != kNW || n <= 0 || (ext != 1 && ext != 2))
+  if (!rcb_width(consts[0]) || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
   // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
   if (ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
   auto u = [](const void* p) { return (const uint32_t*)p; };
   auto w = [](void* p) { return (uint32_t*)p; };
-  decltype(&launch<1, false>) f = ext == 1               ? &launch<1, false>
-                                  : team_split(ext, n) ? &launch<2, true>
-                                                       : &launch<2, false>;
+  const auto f = consts[0] == kNW ? pick<kNW>(ext, n) : pick<kNW12>(ext, n);
   const int rc = (int)f(c, w(ox), w(oy), w(oz), u(x1), u(y1), u(z1), u(x2),
                         u(y2), u(z2), n, (cudaStream_t)stream);
   return rc ? rc : (int)cudaGetLastError();

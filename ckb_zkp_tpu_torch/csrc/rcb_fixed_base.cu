@@ -67,14 +67,33 @@ using namespace zkp;
 
 namespace {
 
-template <int EXT, bool SPLIT>
+template <int NW, int EXT, bool SPLIT>
 cudaError_t launch_team_fb(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
                            uint32_t* oz, const uint32_t* xw,
                            const uint32_t* yw, const uint32_t* sc,
                            long long n, cudaStream_t s) {
-  using L = Team<kNW, EXT, SPLIT, 2 * kNW * EXT + kFbLimbs / 2>;
-  return launch_team<L>(&rcb_team_fixed_base<kNW, EXT, SPLIT>, EXT, n, s, c,
+  using L = Team<NW, EXT, SPLIT, 2 * NW * EXT + kFbLimbs / 2>;
+  return launch_team<L>(&rcb_team_fixed_base<NW, EXT, SPLIT>, EXT, n, s, c,
                         ox, oy, oz, xw, yw, sc, n);
+}
+
+// G1: one thread a point, at NW words
+template <int NW>
+cudaError_t launch_thread_fb(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
+                             uint32_t* oz, const uint32_t* xw,
+                             const uint32_t* yw, const uint32_t* sc,
+                             long long n, cudaStream_t s) {
+  rcb_fixed_base_kernel<NW, 1><<<blocks_for(n, kFbThreads), kFbThreads, 0, s>>>(
+      c, ox, oy, oz, xw, yw, sc, n);
+  return cudaSuccess;
+}
+
+// the launcher of width NW for (ext, n)
+template <int NW>
+decltype(&launch_thread_fb<NW>) pick(int ext, long long n) {
+  return ext == 1 ? &launch_thread_fb<NW>
+         : team_split(ext, n) ? &launch_team_fb<NW, 2, true>
+                              : &launch_team_fb<NW, 2, false>;
 }
 
 }  // namespace
@@ -86,23 +105,15 @@ extern "C" int zkp_rcb_fixed_base(const uint32_t* consts, int ext, void* ox,
                                   void* oy, void* oz, const void* xw,
                                   const void* yw, const void* sc, long long n,
                                   void* stream) {
-  if (consts[0] != kNW || n <= 0 || (ext != 1 && ext != 2))
+  if (!rcb_width(consts[0]) || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
   // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
   if (ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
   auto u = [](const void* p) { return (const uint32_t*)p; };
   auto w = [](void* p) { return (uint32_t*)p; };
-  const cudaStream_t s = (cudaStream_t)stream;
-  int rc = 0;
-  if (ext == 1) {
-    rcb_fixed_base_kernel<kNW, 1>
-        <<<blocks_for(n, kFbThreads), kFbThreads, 0, s>>>(
-            c, w(ox), w(oy), w(oz), u(xw), u(yw), u(sc), n);
-  } else {
-    decltype(&launch_team_fb<2, false>) f =
-        team_split(ext, n) ? &launch_team_fb<2, true> : &launch_team_fb<2, false>;
-    rc = (int)f(c, w(ox), w(oy), w(oz), u(xw), u(yw), u(sc), n, s);
-  }
+  const auto f = consts[0] == kNW ? pick<kNW>(ext, n) : pick<kNW12>(ext, n);
+  const int rc = (int)f(c, w(ox), w(oy), w(oz), u(xw), u(yw), u(sc), n,
+                        (cudaStream_t)stream);
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -78,27 +78,32 @@ void launch_scan(const CurveConsts& c, int ext, uint32_t* wx, uint32_t* wy,
 }  // namespace
 
 namespace zkp {
-int launch_rcb_team_scan(const CurveConsts& c, int ext, bool prefix,
+int launch_rcb_team_scan(const CurveConsts& c, int nw, int ext, bool prefix,
                          uint32_t* wx, uint32_t* wy, uint32_t* wz,
                          uint32_t* tx, uint32_t* ty, uint32_t* tz,
                          const uint32_t* x, const uint32_t* y,
                          const uint32_t* z, long long ncols, int B,
                          cudaStream_t s);
-int launch_rcb_team_madd_scan(const CurveConsts& c, int ext, uint32_t* wx,
-                              uint32_t* wy, uint32_t* wz, uint32_t* tx,
-                              uint32_t* ty, uint32_t* tz, const uint32_t* xw,
-                              const uint32_t* yw, const long long* order,
-                              long long ncols, int B, cudaStream_t s);
+int launch_rcb_team_madd_scan(const CurveConsts& c, int nw, int ext,
+                              uint32_t* wx, uint32_t* wy, uint32_t* wz,
+                              uint32_t* tx, uint32_t* ty, uint32_t* tz,
+                              const uint32_t* xw, const uint32_t* yw,
+                              const long long* order, long long ncols, int B,
+                              cudaStream_t s);
 }  // namespace zkp
 
 // aux: the flags of modes 3 and 4 (a bool a leaf), or the order of mode 0
 // (an int64 leaf row a scan position, or null for the leaves in order).
+// Modes 0-2 (K2-K4) run at 8 or 12 words (consts[0]); modes 3 and 4 (K2a,
+// K2b, the window probes' BN254 kernels) at 8 only.
 extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
                             void* wx, void* wy, void* wz, void* tx, void* ty,
                             void* tz, const void* x, const void* y,
                             const void* z, const void* aux, long long ncols,
                             int B, void* stream) {
-  if (consts[0] != kNW || ncols <= 0 || B <= 0 || mode < 0 || mode > 4 ||
+  const int nw = (int)consts[0];
+  if (!rcb_width(consts[0]) || (mode >= 3 && nw != kNW) || ncols <= 0 || B <= 0 ||
+      mode < 0 || mode > 4 ||
       (ext != 1 && ext != 2) || ((mode == 3 || mode == 4) && !aux) ||
       ((mode == 1 || mode == 2) && !z))
     return (int)cudaErrorInvalidValue;
@@ -110,11 +115,11 @@ extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
   const cudaStream_t s = (cudaStream_t)stream;
   int rc = 0;
   if (mode == 0)
-    rc = launch_rcb_team_madd_scan(c, ext, w(wx), w(wy), w(wz), w(tx), w(ty),
+    rc = launch_rcb_team_madd_scan(c, nw, ext, w(wx), w(wy), w(wz), w(tx), w(ty),
                                    w(tz), r(x), r(y), (const long long*)aux,
                                    ncols, B, s);
   else if (mode <= 2)
-    rc = launch_rcb_team_scan(c, ext, mode == 1, w(wx), w(wy), w(wz), w(tx),
+    rc = launch_rcb_team_scan(c, nw, ext, mode == 1, w(wx), w(wy), w(wz), w(tx),
                               w(ty), w(tz), r(x), r(y), r(z), ncols, B, s);
   else
     (mode == 3 ? &launch_scan<3> : &launch_scan<4>)(

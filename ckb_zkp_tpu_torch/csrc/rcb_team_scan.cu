@@ -16,31 +16,34 @@
 //
 // Team shapes (rcb_team.cuh): 8 lanes a chain for G1 and for G2 above
 // kSplitMax chains (the prove's widest launches: 65536 chains for K2, 2048
-// and 4096 for K3 and K4), a warp a chain for G2 up to kSplitMax.
+// and 4096 for K3 and K4), a warp a chain for G2 up to kSplitMax. Each
+// kernel has an instance at NW = 8 (BN254) and at NW = 12 (BLS12-381);
+// the team shape and block size depend on (ext, n) only, so
+// zkp_rcb_team_lanes and zkp_rcb_team_block describe both.
 #include "rcb_team.cuh"
 
 using namespace zkp;
 
 namespace {
 
-template <int EXT, bool SPLIT, bool PREFIX>
+template <int NW, int EXT, bool SPLIT, bool PREFIX>
 cudaError_t launch_add(const CurveConsts& c, uint32_t* wx, uint32_t* wy,
                        uint32_t* wz, uint32_t* tx, uint32_t* ty, uint32_t* tz,
                        const uint32_t* x, const uint32_t* y, const uint32_t* z,
                        long long ncols, int B, cudaStream_t s) {
-  using L = Team<kNW, EXT, SPLIT, 6 * kNW * EXT>;
-  return launch_team<L>(&rcb_team_scan<kNW, EXT, SPLIT, PREFIX>, EXT, ncols, s,
+  using L = Team<NW, EXT, SPLIT, 6 * NW * EXT>;
+  return launch_team<L>(&rcb_team_scan<NW, EXT, SPLIT, PREFIX>, EXT, ncols, s,
                         c, wx, wy, wz, tx, ty, tz, x, y, z, ncols, B);
 }
 
-template <int EXT, bool SPLIT>
+template <int NW, int EXT, bool SPLIT>
 cudaError_t launch_madd(const CurveConsts& c, uint32_t* wx, uint32_t* wy,
                         uint32_t* wz, uint32_t* tx, uint32_t* ty, uint32_t* tz,
                         const uint32_t* xw, const uint32_t* yw,
                         const long long* order, long long ncols, int B,
                         cudaStream_t s) {
-  using L = Team<kNW, EXT, SPLIT, 2 * kNW * EXT>;
-  return launch_team<L>(&rcb_team_madd_scan<kNW, EXT, SPLIT>, EXT, ncols, s, c,
+  using L = Team<NW, EXT, SPLIT, 2 * NW * EXT>;
+  return launch_team<L>(&rcb_team_madd_scan<NW, EXT, SPLIT>, EXT, ncols, s, c,
                         wx, wy, wz, tx, ty, tz, xw, yw, order, ncols, B);
 }
 
@@ -56,40 +59,52 @@ extern "C" int zkp_rcb_team_block(int ext, long long n) {
   return team_block(ext, n);
 }
 
+namespace {
+
+template <int NW>
+decltype(&launch_add<NW, 1, false, false>) pick_add(int ext, bool prefix,
+                                                    long long ncols) {
+  if (ext == 1)
+    return prefix ? &launch_add<NW, 1, false, true> : &launch_add<NW, 1, false, false>;
+  if (team_split(ext, ncols))
+    return prefix ? &launch_add<NW, 2, true, true> : &launch_add<NW, 2, true, false>;
+  return prefix ? &launch_add<NW, 2, false, true> : &launch_add<NW, 2, false, false>;
+}
+
+template <int NW>
+decltype(&launch_madd<NW, 1, false>) pick_madd(int ext, long long ncols) {
+  if (ext == 1) return &launch_madd<NW, 1, false>;
+  return team_split(ext, ncols) ? &launch_madd<NW, 2, true> : &launch_madd<NW, 2, false>;
+}
+
+}  // namespace
+
 namespace zkp {
 
-// K3 (prefix) or K4 (totals only); the inputs are checked by zkp_rcb_scan.
-// Returns the error of a refused shared-memory attribute, else cudaSuccess.
-int launch_rcb_team_scan(const CurveConsts& c, int ext, bool prefix,
+// K3 (prefix) or K4 (totals only) at nw words (kNW or kNW12); the inputs
+// are checked by zkp_rcb_scan. Returns the error of a refused shared-memory
+// attribute, else cudaSuccess.
+int launch_rcb_team_scan(const CurveConsts& c, int nw, int ext, bool prefix,
                          uint32_t* wx, uint32_t* wy, uint32_t* wz,
                          uint32_t* tx, uint32_t* ty, uint32_t* tz,
                          const uint32_t* x, const uint32_t* y,
                          const uint32_t* z, long long ncols, int B,
                          cudaStream_t s) {
-  decltype(&launch_add<1, false, false>) f;
-  if (ext == 1)
-    f = prefix ? &launch_add<1, false, true> : &launch_add<1, false, false>;
-  else if (team_split(ext, ncols))
-    f = prefix ? &launch_add<2, true, true> : &launch_add<2, true, false>;
-  else
-    f = prefix ? &launch_add<2, false, true> : &launch_add<2, false, false>;
+  const auto f = nw == kNW ? pick_add<kNW>(ext, prefix, ncols)
+                           : pick_add<kNW12>(ext, prefix, ncols);
   return (int)f(c, wx, wy, wz, tx, ty, tz, x, y, z, ncols, B, s);
 }
 
-// K2 over the packed leaves xw, yw read through order (null: in order); the
-// inputs are checked by zkp_rcb_scan. Returns as launch_rcb_team_scan.
-int launch_rcb_team_madd_scan(const CurveConsts& c, int ext, uint32_t* wx,
-                              uint32_t* wy, uint32_t* wz, uint32_t* tx,
-                              uint32_t* ty, uint32_t* tz, const uint32_t* xw,
-                              const uint32_t* yw, const long long* order,
-                              long long ncols, int B, cudaStream_t s) {
-  decltype(&launch_madd<1, false>) f;
-  if (ext == 1)
-    f = &launch_madd<1, false>;
-  else if (team_split(ext, ncols))
-    f = &launch_madd<2, true>;
-  else
-    f = &launch_madd<2, false>;
+// K2 at nw words over the packed leaves xw, yw read through order (null:
+// in order); the inputs are checked by zkp_rcb_scan. Returns as
+// launch_rcb_team_scan.
+int launch_rcb_team_madd_scan(const CurveConsts& c, int nw, int ext,
+                              uint32_t* wx, uint32_t* wy, uint32_t* wz,
+                              uint32_t* tx, uint32_t* ty, uint32_t* tz,
+                              const uint32_t* xw, const uint32_t* yw,
+                              const long long* order, long long ncols, int B,
+                              cudaStream_t s) {
+  const auto f = nw == kNW ? pick_madd<kNW>(ext, ncols) : pick_madd<kNW12>(ext, ncols);
   return (int)f(c, wx, wy, wz, tx, ty, tz, xw, yw, order, ncols, B, s);
 }
 

@@ -11,8 +11,11 @@ hash of the sources, so a checkout builds its own kernels. There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 
 ``COUNTS`` holds one integer per kernel wrapper; a wrapper adds one where
-it launches its kernel, and nowhere else. ``ORDERED`` counts the launches
-of K2 and K9b that read their leaves through an order (the MSMs' all do).
+it launches its kernel, and nowhere else (`count`). ``ORDERED`` counts the
+launches of K2 and K9b that read their leaves through an order (the MSMs'
+all do). ``WIDE`` counts, beside ``COUNTS``, the launches of K1-K6's
+12-word instances (BLS12-381's Fq and Fq2; the 8-word ones serve BN254 and
+every Fr), so that a run can tell which instance ran.
 """
 
 from __future__ import annotations
@@ -72,15 +75,26 @@ COUNTS = {
 }
 
 ORDERED = {"scan_prefix_madd": 0, "ec_block_totals_madd": 0}  # launches given an order
+# launches of the 12-word instances (consts[0] = 12) of K1-K6
+WIDE = {"mont_mul": 0, "scan_prefix_madd": 0, "scan_prefix_add": 0, "scan_total_add": 0,
+        "rcb_add": 0, "rcb_fixed_base": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    for counts in (COUNTS, ORDERED):
+    for counts in (COUNTS, ORDERED, WIDE):
         for k in counts:
             counts[k] = 0
+
+
+def count(name: str, kconsts) -> None:
+    """One launch of kernel `name` with the constant block `kconsts`
+    (`cuda_field.kernel_consts`, whose first word is the word count)."""
+    COUNTS[name] += 1
+    if int(kconsts[0]) == 12 and name in WIDE:
+        WIDE[name] += 1
 
 
 def _nvcc() -> str:

@@ -3,12 +3,13 @@
 Replaces the TPU kernel `ops/pallas_field.py` `_mul_kernel` (through
 `_mul_fn`, entries `mont_mul`/`mont_mul_tiles`): a * b * R^-1 mod p with
 canonical output. On the H100 the kernel (`csrc/mont_mul.cu`
-`mont_mul_kernel`) runs one thread per element, CIOS over eight 32-bit
-words with 64-bit accumulators: it is bound by the integer multiply rate
-(2 * 8^2 32x32->64 products per element) and reads 64 bytes per operand
-row with 16-byte vector loads. A broadcast operand (a constant such as
-R^2 or a twiddle row of length 1) is read with a zero element step instead
-of being materialized.
+`mont_mul_kernel`) runs one thread per element, CIOS over NW = L / 2
+32-bit words with 64-bit accumulators (an instance at 8 words: BN254 and
+every Fr; one at 12: BLS12-381's Fq, which also serves its Fq2): it is
+bound by the integer multiply rate (2 NW^2 32x32->64 products per
+element) and reads 4 NW bytes per operand row with 16-byte vector loads.
+A broadcast operand (a constant such as R^2 or a twiddle row of length
+1) is read with a zero element step instead of being materialized.
 
 The plain version is the reference's XLA path (`ops/field.py:123-179`) in
 int64: skewed schoolbook columns, flat carry resolution, SOS reduction and
@@ -80,7 +81,7 @@ def mont_mul(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         df.kconsts.ctypes.data, out.data_ptr(), a.data_ptr(), b.data_ptr(),
         n, sa, sb, cuda_build.stream_ptr(out),
     )
-    cuda_build.COUNTS["mont_mul"] += 1
+    cuda_build.count("mont_mul", df.kconsts)
     cuda_build.check(rc, "mont_mul")
     return out
 

@@ -79,7 +79,7 @@ def launch_pairwise(entry: str, count: str, kconsts, cf, p, q, *lead):
         kconsts.ctypes.data, cf.ext, *lead, *_launch_args(out), *_launch_args(coords),
         n, cuda_build.stream_ptr(out[0]),
     )
-    cuda_build.COUNTS[count] += 1
+    cuda_build.count(count, kconsts)
     cuda_build.check(rc, count)
     return tuple(out)
 
@@ -182,7 +182,7 @@ def rcb_fixed_base(rg, X, Y, scalars):
     rc = cuda_build.lib().zkp_rcb_fixed_base(
         rg.kconsts.ctypes.data, rg.cf.ext, *_launch_args(out), xw.data_ptr(),
         yw.data_ptr(), scalars.data_ptr(), n, cuda_build.stream_ptr(out[0]))
-    cuda_build.COUNTS["rcb_fixed_base"] += 1
+    cuda_build.count("rcb_fixed_base", rg.kconsts)
     cuda_build.check(rc, "rcb_fixed_base")
     return tuple(out)
 
@@ -275,7 +275,7 @@ def scan_prefix_madd(rg, xw, yw, B: int, order=None):
         return scan_prefix_madd_plain(rg, xw, yw, B, order)
     rc, W, T = _scan_launch(rg, 0, (xw.contiguous(), yw.contiguous()), M, B, True,
                             None if order is None else order.contiguous())
-    cuda_build.COUNTS["scan_prefix_madd"] += 1
+    cuda_build.count("scan_prefix_madd", rg.kconsts)
     if order is not None:
         cuda_build.ORDERED["scan_prefix_madd"] += 1
     cuda_build.check(rc, "scan_prefix_madd")
@@ -317,7 +317,7 @@ def scan_prefix_add(rg, pts, B: int):
     if pts[0].device.type == "cpu":
         return scan_prefix_add_plain(rg, pts, B)
     rc, W, T = _scan_launch(rg, 1, [c.contiguous() for c in pts], M, B, True)
-    cuda_build.COUNTS["scan_prefix_add"] += 1
+    cuda_build.count("scan_prefix_add", rg.kconsts)
     cuda_build.check(rc, "scan_prefix_add")
     return W, T
 
@@ -329,7 +329,7 @@ def scan_total_add(rg, pts, B: int):
     if pts[0].device.type == "cpu":
         return scan_total_add_plain(rg, pts, B)
     rc, _, T = _scan_launch(rg, 2, [c.contiguous() for c in pts], M, B, False)
-    cuda_build.COUNTS["scan_total_add"] += 1
+    cuda_build.count("scan_total_add", rg.kconsts)
     cuda_build.check(rc, "scan_total_add")
     return T
 

@@ -291,6 +291,19 @@ class DeviceCurveGroup:
     def decode_point(self, p):
         return self.decode_points_host(tuple(c.unsqueeze(0) for c in p))[0]
 
+    def decode_points(self, P) -> list:
+        """Jacobian (X, Y, Z) arrays -> host affine points, the affine
+        coordinates formed on the device by one batch inversion (the
+        reference's device branch of `decode_points`, `ops/msm.py:449-470`;
+        for a key's queries, where `decode_points_host` pays one Python-int
+        inversion a point)."""
+        if P[0].shape[0] == 0:
+            return []
+        x, y, inf = to_affine(self.cf, P)
+        host = self.host_group
+        return [host.infinity if i else AffinePoint(a, b)
+                for a, b, i in zip(self._coords_host(x), self._coords_host(y), inf.tolist())]
+
     # ------------- variable-base Pippenger -------------
     def msm(self, P, scalars):
         """Jacobian point sum_i s_i P_i. P affine-encoded (Z in {0, one});

@@ -4,9 +4,10 @@ by CUDA events, and random field elements drawn on the device.
 
 A bound is the least time the card could take for a kernel's work: the
 largest of its bytes (each input read once, each output written once; an
-Fq element is 16 int32 limbs, 64 B) over 3.35 TB/s, its 32-bit multiply
-instructions (an 8-word CIOS product is 2 * 8^2 + 8 word products, each a
-low and a high IMAD; Fq2 is 3 Fq products) over 64 IMAD per SM per clock
+Fq element is L int32 limbs: 64 B for BN254, 96 B for BLS12-381) over
+3.35 TB/s, its 32-bit multiply instructions (an NW-word CIOS product is
+2 NW^2 + NW word products, each a low and a high IMAD: 272 IMADs at 8
+words, 600 at 12; Fq2 is 3 Fq products) over 64 IMAD per SM per clock
 at the SM's maximum clock, and its int8 tensor-core operations over 1,979
 TOPS (the tensor-core Montgomery product: its 2 * 8^2 product IMADs on the
 integer multipliers, and 24 mma.m16n8k32 per warp of 32 elements for the
@@ -22,8 +23,22 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMAD_PER_SM_CLOCK = 64  # CUDA Programming Guide, compute capability 9.0
-FQ_BYTES = 64  # 16 int32 limbs
-IMAD_PER_FQ_MUL = 2 * (2 * 8 * 8 + 8)  # CIOS over 8 words, low + high IMAD
+
+
+def fq_bytes(L: int) -> int:
+    """Bytes of one Fq element of L 16-bit limbs in int32 lanes."""
+    return 4 * L
+
+
+def imad_per_mul(L: int) -> int:
+    """IMADs of one CIOS product over NW = L / 2 words: 2 NW^2 + NW word
+    products, each a low and a high IMAD."""
+    nw = L // 2
+    return 2 * (2 * nw * nw + nw)
+
+
+FQ_BYTES = fq_bytes(16)  # BN254: 16 int32 limbs, 64 B (BLS12-381: 24, 96 B)
+IMAD_PER_FQ_MUL = imad_per_mul(16)  # BN254: 272 (BLS12-381's Fq: 600)
 IMAD_PER_TC_MUL = 2 * 8 * 8  # the tensor-core product's a * b, low + high IMAD
 TC_OPS_PER_MUL = 24 * 2 * 16 * 8 * 32 // 32  # its reduction's mma ops per element
 INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor cores

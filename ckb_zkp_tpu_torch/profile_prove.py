@@ -1,7 +1,7 @@
 """Time and profile the port's Groth16 prove (or setup) on one CUDA card.
 
     python -m ckb_zkp_tpu_torch.profile_prove [--log2 20] [--reps 10] [--setup]
-        [--engine rcb|jacobian]
+        [--engine rcb|jacobian] [--curve bn254|bls12_381]
 
 Runs the port's setup for a (2^log2 - 2)-constraint square chain, one
 warm-up prove, `reps` timed proves (median and quartiles of the wall
@@ -16,7 +16,9 @@ launch shape (grid and block, from the trace's kernel records): each
 shape's launches and device ms. With `--setup` the timed and profiled
 runs are setups instead (no prove). `--engine jacobian` runs
 setup and proves on the Jacobian MSM engine (`_use_rcb = False` on the
-card's device groups). `--origins` adds one more profiled run with Python
+card's device groups; BN254 only: that engine has no 12-word kernels).
+`--curve bls12_381` runs the same on BLS12-381 (Fq at 12 words).
+`--origins` adds one more profiled run with Python
 stacks and splits its row-read kernels by the lines of the package that
 launched them (launches and device ms a chain of the package's frames,
 innermost first).
@@ -172,13 +174,15 @@ def main() -> int:
                     help="the MSM engine of setup and prove")
     ap.add_argument("--origins", action="store_true",
                     help="split the row reads by the package lines that launched them")
+    ap.add_argument("--curve", choices=("bn254", "bls12_381"), default="bn254",
+                    help="the pairing curve of setup and prove")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: needs a CUDA card", file=sys.stderr)
         return 2
 
-    card = f"{_card()}, {args.engine} engine"
-    curve = get_curve("bn254")
+    card = f"{_card()}, {args.curve}, {args.engine} engine"
+    curve = get_curve(args.curve)
     for g in ("g1", "g2"):
         device_group(curve, g, "cuda")._use_rcb = args.engine == "rcb"
     fr = curve.fr.modulus

@@ -10,19 +10,41 @@ scalar algebra of `_setup_scalars` on the device, and five fixed-base MSMs
 count (l is infinity at input slots), h padded to max(columns, m) with
 infinity from m - 1 up, b_g2 pow2-padded. `host_mode=True` is the
 reference's host branch (`:76-94`): the instance map in host ints and the
-exact, unpadded layout. The verifying key is built in host ints.
+exact, unpadded layout. The verifying key is built in host ints. The
+front ends `generate_random_parameters` and `generate_parameters` are the
+reference's (`:25-45`) over the port's `r1cs.synthesize`, on `device`.
 """
 
 from __future__ import annotations
 
+import random
+
 import torch
 
+from ...host.pairing import PairingCurve
 from ...ops.field import device_field
 from ...ops.limbs import limbs_to_ints
 from ...ops.msm import device_group
+from ...r1cs import ConstraintSynthesizer, SynthesisMode, synthesize
 from .prover import Stages
 from .qap import QapMatrices, qap_matrices
 from .types import Parameters, VerifyKey
+
+
+def generate_random_parameters(circuit: ConstraintSynthesizer, curve: PairingCurve,
+                               rng: random.Random, device="cuda") -> Parameters:
+    r = curve.fr.modulus
+    alpha, beta, gamma, delta = (rng.randrange(1, r) for _ in range(4))
+    t = rng.randrange(1, r)
+    return generate_parameters(circuit, curve, alpha, beta, gamma, delta, t, device)
+
+
+def generate_parameters(circuit: ConstraintSynthesizer, curve: PairingCurve, alpha: int,
+                        beta: int, gamma: int, delta: int, t: int,
+                        device="cuda") -> Parameters:
+    shape = synthesize(circuit, curve.fr.modulus, SynthesisMode.SETUP)
+    return generate_parameters_from_shape(shape, curve, alpha, beta, gamma, delta, t,
+                                          device=device)
 
 
 def generate_parameters_from_shape(shape, curve, alpha: int, beta: int,

@@ -5,11 +5,15 @@ canonical witness limbs, the QAP witness map, five Pippenger MSMs (a,
 b_g1, h, l in G1 and b in G2), and the final group algebra in host ints.
 It accepts padded keys (device setup: the port's own, or the reference's)
 and exact keys (the reference's host-mode setup). Every MSM runs the port's
-Pippenger; there is no host-int shortcut for small circuits.
+Pippenger; there is no host-int shortcut for small circuits. The front
+ends `create_random_proof`, `create_proof_no_zk` and `create_proof` are
+the reference's (`:23-41`) over the port's `r1cs.synthesize`; every prove
+runs on the device that holds the keys' queries.
 """
 
 from __future__ import annotations
 
+import random
 import time
 
 import numpy as np
@@ -17,8 +21,27 @@ import torch
 
 from ...ops.limbs import ints_to_limbs
 from ...ops.msm import device_group
+from ...r1cs import ConstraintSynthesizer, SynthesisMode, synthesize
 from .qap import qap_matrices
-from .types import Proof
+from .types import Parameters, Proof
+
+
+def create_random_proof(params: Parameters, circuit: ConstraintSynthesizer,
+                        rng: random.Random) -> Proof:
+    r_mod = params.curve.fr.modulus
+    r = rng.randrange(r_mod)
+    s = rng.randrange(r_mod)
+    return create_proof(params, circuit, r, s)
+
+
+def create_proof_no_zk(params: Parameters, circuit: ConstraintSynthesizer) -> Proof:
+    return create_proof(params, circuit, 0, 0)
+
+
+def create_proof(params: Parameters, circuit: ConstraintSynthesizer, r: int,
+                 s: int) -> Proof:
+    shape = synthesize(circuit, params.curve.fr.modulus, SynthesisMode.PROVE)
+    return create_proof_from_shape(params, shape, r, s)
 
 
 class Stages:

@@ -1,7 +1,11 @@
 """The port's own copies of the JAX package's host layers (fields, curves,
-pairings, R1CS, benchmark circuits, Groth16 types and verifier) against the
-originals: the same circuits array for array, the same curve arithmetic,
-and the same verifier verdicts."""
+pairings, R1CS, benchmark circuits, Groth16 types and verifier, the ark-0.2
+codecs and the Mini circuit) against the originals: each exact copy's text
+is its original's under a header naming it, and the same circuits array
+for array, the same curve arithmetic, and the same verifier verdicts."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -9,6 +13,7 @@ import pytest
 from ckb_zkp_tpu import bench_circuits as ref_circuits
 from ckb_zkp_tpu.host.pairing import get_curve
 from ckb_zkp_tpu.schemes import groth16 as ref_groth16
+from ckb_zkp_tpu.schemes.groth16.qap import QapMatrices as RefQap
 from ckb_zkp_tpu_torch import bench_circuits as port_circuits
 from ckb_zkp_tpu_torch.convert import point_from_reference
 from ckb_zkp_tpu_torch.host.pairing import get_curve as port_curve
@@ -18,6 +23,24 @@ from ckb_zkp_tpu_torch.schemes.groth16.types import Proof
 
 CURVE = get_curve("bn254")
 FR = CURVE.fr.modulus
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the copies kept word for word (r1cs/system.py leaves out the witness cache)
+EXACT_COPIES = ("host/curves.py", "host/field.py", "host/pairing.py", "host/tower.py",
+                "r1cs/lc.py", "bench_circuits.py", "schemes/groth16/types.py",
+                "schemes/groth16/verifier.py", "serialize/ark.py", "circuits/mini.py")
+
+
+@pytest.mark.parametrize("path", EXACT_COPIES)
+def test_copy_matches_its_original(path):
+    """The copy is a header line naming its original, then the original's
+    text, where the original's absolute paths to the Rust sources read
+    `ckb-zkp <path>`."""
+    with open(os.path.join(REPO, "ckb_zkp_tpu", path)) as f:
+        original = f.read()
+    with open(os.path.join(REPO, "ckb_zkp_tpu_torch", path)) as f:
+        header, _, copy = f.read().partition("\n")
+    assert header.startswith(f"# Copied from ckb_zkp_tpu/{path} ")
+    assert copy == re.sub(r"(/\w+)+/reference/", "ckb-zkp ", original)
 
 
 @pytest.mark.parametrize("circuit,n", [("square_chain_shape", 62),
@@ -52,7 +75,9 @@ def test_port_verifier_gives_the_reference_verdicts():
     shape = ref_circuits.square_chain_shape(30, FR)
     params = ref_groth16.generate_parameters_from_shape(
         shape, CURVE, 5, 6, 7, 8, 9, host_mode=True)
-    proof = ref_groth16.create_proof_from_shape(params, shape, 3, 4)
+    # the reference's host-int prover (no witness-map compiles): the same proof
+    proof = ref_groth16.create_proof_from_shape(
+        params, shape, 3, 4, qap=RefQap(shape, CURVE.fr, host_mode=True))
     publics = shape.input_assignment[1:]
     pc = port_curve("bn254")
     pt = point_from_reference

@@ -1,5 +1,6 @@
-"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 7
-at a small size. Marked `cuda`; without a card they skip."""
+"""Kernel against plain version on the card: chip_smoke.py's phases 3 to 8
+at a small size, BN254's 8-word kernels and BLS12-381's 12-word K1-K6.
+Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -243,3 +244,58 @@ def test_grid_and_dma_kernels_bit_equal_at_edge_shapes(smoke):
 
     grid.check("cuda")
     dma.check("cuda")
+
+
+def test_wide_kernels_bit_equal_to_plain(smoke):
+    """BLS12-381's 12-word K1-K6, G1 and G2, bit for bit against their
+    plain versions at edge values (K1: 0, 1, p - 1, R; K5: P + P, P - P and
+    identities, also against the host group; K2 with flagged leaves, in
+    order and through random orders, at the G2 team boundary; K3/K4 at
+    ragged chain counts; K6 at 1-2049 points with edge scalars) and at a
+    2^14 slice's shapes; the MSM equals the host ints and the Jacobian
+    engine refuses 12 words (`phase_wide_kernels`)."""
+    results = {}
+    smoke.phase_wide_kernels(results, 14)
+    assert set(results) == set(smoke.WIDE_ROWS)
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
+
+
+def test_wide_jacobian_kernels_raise_and_do_not_fall_back():
+    """The Jacobian engine's kernels have no 12-word instance: a BLS12-381
+    call on the card raises at its launch and computes nothing on the
+    plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_ec
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    curve = get_curve("bls12_381")
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, "cuda")
+        P = dg.encode_points([dg.host_group.mul(curve.g1_gen if group == "g1"
+                                                else curve.g2_gen, 3)] * 64)
+        leaves = (P[0], P[1], dg.cf.is_zero(P[2]))
+        calls = (lambda: cuda_ec.ec_add(dg.cf, P, P),
+                 lambda: cuda_ec.ec_madd(dg.cf, P, leaves),
+                 lambda: cuda_ec.block_totals_madd(dg.cf, leaves, 32),
+                 lambda: cuda_ec.block_totals_add(dg.cf, P, 32),
+                 lambda: cuda_ec.ec_add_chain(dg.cf, tuple(c[:1] for c in P),
+                                              tuple(c[:2].unsqueeze(1) for c in P), [1, 0]))
+        for call in calls:
+            with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                call()
+
+
+def test_wide_small_setup_and_prove_launch_every_wide_kernel(smoke):
+    run = smoke.phase_slice(torch.cuda.get_device_name(0), 13, "bls12_381")
+    assert run["setup_wide"]["rcb_fixed_base"] == 5
+    assert all(run["prove_wide"][k] > 0 for k in RCB_PROVE)
+
+
+def test_wide_front_ends_and_bytes(smoke):
+    """Mini on BLS12-381 through the front ends, and a 2^10 setup's keys
+    through the byte codec: the decoded keys prove the same proof."""
+    card = torch.cuda.get_device_name(0)
+    smoke.phase_wide_frontends(card)
+    smoke.phase_wide_bytes(card, smoke.phase_setup_check(10, "bls12_381"))

@@ -15,7 +15,7 @@ import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import convert
 from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
-from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap
+from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap, serialize
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -27,6 +27,8 @@ import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
 from ckb_zkp_tpu_torch.host.pairing import get_curve
 from ckb_zkp_tpu_torch.schemes import groth16
+from ckb_zkp_tpu_torch.schemes.groth16 import serialize
+from ckb_zkp_tpu_torch.circuits import Mini
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -127,6 +129,8 @@ def test_source_scan_rejects_the_alias_loader():
     (convert.params_from_reference, "device"), (qap.qap_matrices, "device"),
     (qap.QapMatrices.__init__, "device"),
     (generator.generate_parameters_from_shape, "device"),
+    (generator.generate_random_parameters, "device"), (generator.generate_parameters, "device"),
+    (serialize.parameters_from_bytes, "device"),
     (common.rand_field, "device"), (window.check, "device"), (window.measure, "device"),
     (window.make_inputs, "device"), (scan.check, "device"), (scan.measure, "device"),
     (scan.make_inputs, "device"), (mxu.check, "device"), (mxu.measure, "device"),
@@ -159,3 +163,6 @@ def test_cuda_sources_and_build_command():
         "probe_madd_totals_tc", "probe_grid_totals", "probe_grid_prefix", "probe_wo_steps",
         "probe_wo_tile", "probe_grid_prefix_tile", "probe_xor_flat", "probe_xor_lead1",
         "probe_xor_grid2d"}
+    # the 12-word instances of K1-K6, counted beside their names
+    assert set(cuda_build.WIDE) == {"mont_mul", "scan_prefix_madd", "scan_prefix_add",
+                                    "scan_total_add", "rcb_add", "rcb_fixed_base"}

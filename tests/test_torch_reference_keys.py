@@ -1,6 +1,9 @@
 """The port's prover on the reference's deserialized proving keys, on the
-CPU. The reference's device-branch setup of `product_circuit_shape(200)`
-(nv 601, above the reference's CPU padding cutoff of 512; m 256) goes
+CPU. The reference's setup of `product_circuit_shape(200)` (nv 601, above
+the reference's CPU padding cutoff of 512; m 256), run in host ints (its
+host-mode instance map, and its fixed-base MSMs on the host while its
+device groups' `small_host_threshold` is raised: the same points as its
+device branch, without that branch's minute of XLA compiles), goes
 through its `parameters_to_bytes` and `parameters_from_bytes`, which pad
 the G1 and G2 queries to 1024 rows but h_query to m = 256 only, fewer
 than the port's max(num_cols_pad, m) h scalars. The port cuts the h
@@ -14,6 +17,7 @@ import torch
 
 from ckb_zkp_tpu.bench_circuits import product_circuit_shape
 from ckb_zkp_tpu.host.pairing import get_curve
+from ckb_zkp_tpu.ops.msm import device_group as ref_device_group
 from ckb_zkp_tpu.schemes import groth16 as ref_groth16
 from ckb_zkp_tpu.schemes.groth16.qap import QapMatrices as RefQap
 from ckb_zkp_tpu.schemes.groth16.serialize import parameters_from_bytes, parameters_to_bytes
@@ -39,7 +43,16 @@ def keys():
     """(reference shape, deserialized reference keys, the same keys in the
     port, the port's shape)."""
     shape = product_circuit_shape(N, FR)
-    fresh = ref_groth16.generate_parameters_from_shape(shape, CURVE, *TOXIC)
+    groups = [ref_device_group(CURVE, g) for g in ("g1", "g2")]
+    cutoffs = [g.small_host_threshold for g in groups]
+    try:
+        for g in groups:
+            g.small_host_threshold = 1 << 30
+        fresh = ref_groth16.generate_parameters_from_shape(shape, CURVE, *TOXIC,
+                                                           host_mode=True)
+    finally:
+        for g, c in zip(groups, cutoffs):
+            g.small_host_threshold = c
     ref = parameters_from_bytes(CURVE, parameters_to_bytes(fresh))
     return shape, ref, params_from_reference(ref, "cpu"), port_circuits.product_circuit_shape(N, FR)
 
