@@ -59,7 +59,18 @@ stacks, no row read that an `aten::index` op launched from `_window_sums`
 Jacobian MSM of 2^14 points, the
 widest that still runs the elementwise K9a (`_prefix_boundary_leaf`'s
 leaf branch, `leaf_shapes`), against the host ints, with that K9a's
-launches counted from those two MSMs alone (`phase_jacobian_leaf`); (7)
+launches counted from those two MSMs alone (`phase_jacobian_leaf`);
+Marlin (`phase_marlin`): `universal_setup` (2^18 + 1 powers: K6 twice),
+`index`, `create_random_proof` and `verify_proof` of the (2^16 -
+2)-constraint square chain over BN254, each stage timed (the AHP's device
+transforms apart from its host work, `TransformClock`), the proof
+verified and refused under a changed public input, every K1-K6 launched
+by the phase (`marlin_launches` in the kernel line) and the largest
+opening's synthetic division in O(log n) launches; the Mini proof on the
+card equal to the port's CPU proof from the plain versions (a child
+process started before the build, `phase_marlin_mini`); a KZG10 round
+trip over BLS12-381 at degree 2^12 that launches every 12-word K1-K6
+(`kzg_launches` in the `_nw12` rows, `phase_kzg_wide`); (7)
 BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
@@ -1866,6 +1877,329 @@ def phase_wide(results: dict, card: str, log2: int) -> dict:
     return run
 
 
+# ---------------------------------------------------------------- Marlin
+MARLIN_LOG2 = 16  # |H| = 2^16: square chain of 2^16 - 2 constraints, SRS 2^18 + 1
+MARLIN_KERNELS = ("mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
+                  "rcb_add", "rcb_fixed_base")  # K1-K6, 8 words on BN254
+KZG_WIDE_LOG2 = 12  # the BLS12-381 KZG10 round trip's degree
+
+
+class SquareChain:
+    """x_i * x_i = x_(i+1) for i < n, x_n the one public input: the shape of
+    `bench_circuits.square_chain_shape` as a ConstraintSynthesizer (the
+    smoke's own Marlin circuit). n + 2 variables (ONE, x_n, x_0..x_(n-1));
+    x0 None synthesizes without values (the indexer's mode)."""
+
+    def __init__(self, n: int, p: int, x0: int | None = None):
+        self.n, self.p, self.x0 = n, p, x0
+
+    def chain(self) -> list:
+        xs = [self.x0]
+        for _ in range(self.n):
+            xs.append(None if xs[-1] is None else xs[-1] * xs[-1] % self.p)
+        return xs
+
+    def generate_constraints(self, cs) -> None:
+        xs = self.chain()
+        aux = [cs.alloc(f"x{i}", xs[i]) for i in range(self.n)]
+        out = cs.alloc_input("x_n", xs[self.n])
+        for i in range(self.n):
+            cs.enforce("x_i * x_i = x_(i+1)", aux[i], aux[i], aux[i + 1] if i + 1 < self.n else out)
+
+
+def mini_proof(device: str) -> dict:
+    """The Mini circuit's Marlin proof over BN254 as `tests/test_marlin.py`
+    seeds it (`random.Random(123)`, SRS degree 128), on `device`, as
+    JSON-able fields: the verifying key's bytes (hex), the commitments,
+    evaluations and opening proofs."""
+    from ckb_zkp_tpu_torch.circuits import Mini
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import marlin
+
+    pt = lambda q: None if q is None else [q.infinity, q.x, q.y]  # noqa: E731
+    rng = random.Random(123)
+    srs = marlin.universal_setup(get_curve("bn254"), 128, rng, device=device)
+    ipk, ivk = marlin.index(srs, Mini.power_off())
+    proof = marlin.create_random_proof(ipk, Mini.power_on(2, 3, 10), rng)
+    if not marlin.verify_proof(ivk, proof, [10]) or marlin.verify_proof(ivk, proof, [11]):
+        raise AssertionError(f"the Mini proof on {device} does not verify, or [11] does")
+    return {"ivk": ivk.to_bytes().hex(),
+            "commitments": [[[pt(c.comm), pt(c.shifted_comm)] for c in r]
+                            for r in proof.commitments],
+            "evaluations": proof.evaluations,
+            "openings": [[pt(o.w), o.rand_v] for o in proof.opening_proofs]}
+
+
+def start_mini_cpu():
+    """The Mini proof from the plain versions on the host's CPU, in a child
+    process that runs while the kernels are checked (its torch on 2
+    threads). `finish_mini_cpu` reads it."""
+    import subprocess
+
+    code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps(chip_smoke.mini_proof('cpu')))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_mini_cpu(child) -> dict:
+    out, err = child.communicate(timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the CPU Mini proof failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+class TransformClock:
+    """Seconds the AHP spends in the device branch of `HDomain` (upload,
+    NTT, download) and in its two device products (`ahp._poly_mul`),
+    each call closed by a synchronize; installed for one phase."""
+
+    def __init__(self):
+        self.seconds = {"hdomain": 0.0, "poly_mul": 0.0}
+        self.calls = {"hdomain": 0, "poly_mul": 0}
+
+    def _wrap(self, key, fn):
+        import torch
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            self.calls[key] += 1
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def installed(self):
+        from ckb_zkp_tpu_torch.ops.hdomain import HDomain
+        from ckb_zkp_tpu_torch.schemes.marlin import ahp
+
+        saved = (HDomain._device, ahp._poly_mul)
+        HDomain._device = self._wrap("hdomain", saved[0])
+        ahp._poly_mul = self._wrap("poly_mul", saved[1])
+        try:
+            yield self
+        finally:
+            HDomain._device, ahp._poly_mul = saved
+
+    def take(self) -> dict:
+        out = {k: round(v, 6) for k, v in self.seconds.items()} | {
+            f"{k}_calls": v for k, v in self.calls.items()}
+        self.seconds = dict.fromkeys(self.seconds, 0.0)
+        self.calls = dict.fromkeys(self.calls, 0)
+        return out
+
+
+@contextlib.contextmanager
+def divisions_recorded():
+    """Records (n, K1 launches, df, coeffs, z) of each `poly_divide_linear`
+    call that `marlin/pc.py` makes while the context is open."""
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes.marlin import pc
+
+    seen: list = []
+    real = pc.poly_divide_linear
+
+    def rec(df, coeffs, z):
+        k1 = cuda_build.COUNTS["mont_mul"]
+        out = real(df, coeffs, z)
+        seen.append((coeffs.shape[0], cuda_build.COUNTS["mont_mul"] - k1, df, coeffs, z))
+        return out
+
+    pc.poly_divide_linear = rec
+    try:
+        yield seen
+    finally:
+        pc.poly_divide_linear = real
+
+
+def profiled(run, top: int = 8) -> dict:
+    """One run under the torch profiler (CUDA activity): its wall seconds,
+    the device busy seconds (the sum of its kernels' times), the idle
+    share, the kernel launches, and the `top` kernels by device ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    by_name: dict = {}
+    for e in kernels:
+        k, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (k + 1, ms + e.time_range.elapsed_us() / 1e3)
+    tops = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"wall_s": wall, "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "kernel_launches": len(kernels),
+            "top_kernels": [[name[:60], k, round(ms, 3)] for name, (k, ms) in tops]}
+
+
+def division_launches(df, coeffs, z) -> dict:
+    """Every CUDA kernel that one `poly_divide_linear` of `coeffs` launches
+    (the torch profiler's kernel events), with K1's share."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.ops.poly import poly_divide_linear
+
+    torch.cuda.synchronize()
+    k1 = cuda_build.COUNTS["mont_mul"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        poly_divide_linear(df, coeffs, z)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"n": coeffs.shape[0], "k1_launches": cuda_build.COUNTS["mont_mul"] - k1,
+            "kernel_launches": len(kernels),
+            "rounds": (coeffs.shape[0] - 1).bit_length()}
+
+
+def phase_marlin(card: str, log2: int = MARLIN_LOG2) -> dict:
+    """Marlin over BN254 on the card: `universal_setup` (K6 twice, K1),
+    `index` and `create_random_proof` of the (2^log2 - 2)-constraint square
+    chain (K1-K5), each stage timed (the AHP's device transforms apart from
+    its host work), `verify_proof` on the public input and on a changed
+    one; every kernel of K1-K6 launched by the phase; the launches of the
+    largest opening's synthetic division (O(log n)). Returns the phase's
+    launches, seconds and the division's launches."""
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes import marlin
+    from ckb_zkp_tpu_torch.schemes.marlin import ahp
+
+    curve = get_curve("bn254")
+    p = curve.fr.modulus
+    n = (1 << log2) - 2
+    rng = random.Random(SEED + 13)
+    x0 = rng.randrange(2, p)
+    max_degree = ahp.max_degree(n + 2, n + 2, n)
+    secs: dict = {}
+    clock = TransformClock()
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srs = marlin.universal_setup(curve, max_degree, rng, device=DEVICE)
+    torch.cuda.synchronize()
+    secs["universal_setup"] = time.perf_counter() - t0
+    log(f"marlin setup: max_degree {max_degree}, {srs.max_degree + 1} powers, "
+        f"{secs['universal_setup']:.3f} s; launches {json.dumps(cuda_build.COUNTS)} [{card}]")
+    with clock.installed():
+        index_t: dict = {}
+        t0 = time.perf_counter()
+        ipk, ivk = marlin.index(srs, SquareChain(n, p), timings=index_t)
+        secs["index"] = time.perf_counter() - t0
+        index_dev = clock.take()
+        info = ivk.index_info
+        log(f"marlin index: {info.num_constraints} constraints, {info.num_variables} "
+            f"variables, {info.num_non_zeros} non-zeros, {secs['index']:.3f} s "
+            f"{json.dumps(index_t)}; AHP device transforms {json.dumps(index_dev)} [{card}]")
+        prove_t: dict = {}
+        with divisions_recorded() as divs:
+            t0 = time.perf_counter()
+            proof = marlin.create_random_proof(ipk, SquareChain(n, p, x0), rng, prove_t)
+            secs["create_random_proof"] = time.perf_counter() - t0
+        prove_dev = clock.take()
+    log(f"marlin prove: {secs['create_random_proof']:.3f} s {json.dumps(prove_t)}; AHP "
+        f"device transforms {json.dumps(prove_dev)} [{card}]")
+    public = SquareChain(n, p, x0).chain()[-1]
+    t0 = time.perf_counter()
+    ok = marlin.verify_proof(ivk, proof, [public])
+    secs["verify_proof"] = time.perf_counter() - t0
+    bad = marlin.verify_proof(ivk, proof, [(public + 1) % p])
+    launches = {k: cuda_build.COUNTS[k] for k in MARLIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"marlin verify_proof: {ok} in {secs['verify_proof']:.3f} s; changed public input: "
+        f"{bad}")
+    if ok is not True or bad is not False:
+        raise AssertionError("the Marlin proof does not verify, or one with a changed public "
+                             "input does")
+    log(f"marlin launches (setup to verify): {json.dumps(cuda_build.COUNTS)}; peak device "
+        f"memory {peak} bytes [{card}]")
+    missing = [k for k in MARLIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the Marlin phase: {missing}")
+    warm_t: dict = {}
+    prof = profiled(lambda: marlin.create_random_proof(
+        ipk, SquareChain(n, p, x0), random.Random(SEED + 15), warm_t))
+    log(f"marlin prove, warm, profiled: {json.dumps(prof)}; stages {json.dumps(warm_t)} "
+        f"[{card}]")
+    largest = max(divs, key=lambda d: d[0])
+    div = division_launches(*largest[2:])
+    div["k1_launches_in_prove"] = largest[1]
+    log(f"marlin openings: synthetic divisions of {[d[0] for d in divs]} coefficients; the "
+        f"largest: {json.dumps(div)}")
+    if div["k1_launches"] != div["rounds"] or div["kernel_launches"] > 40 * div["rounds"]:
+        raise AssertionError("the opening's synthetic division does not run in O(log n) "
+                             "launches")
+    return {"launches": launches, "seconds": secs, "index_stages": index_t,
+            "prove_stages": prove_t, "index_device": index_dev, "prove_device": prove_dev,
+            "division": div, "peak_bytes": peak, "warm": prof, "warm_stages": warm_t}
+
+
+def phase_marlin_mini(card: str, cpu_child) -> None:
+    """The Mini proof on the card against the port's CPU proof from the
+    plain versions (computed by `cpu_child`), field for field."""
+    t0 = time.perf_counter()
+    got = mini_proof(DEVICE)
+    card_s = time.perf_counter() - t0
+    want = finish_mini_cpu(cpu_child)
+    if got != want:
+        raise AssertionError("the Mini Marlin proof on the card differs from the CPU one")
+    log(f"marlin mini: the proof and vk bytes on the card ({card_s:.3f} s) equal the port's "
+        f"CPU proof from the plain versions; both verify, [11] refused [{card}]")
+
+
+def phase_kzg_wide(card: str, log2: int = KZG_WIDE_LOG2) -> dict:
+    """A KZG10 round trip over BLS12-381 at degree 2^log2, without hiding
+    and with a hiding bound of 2: setup (the 12-word K6, K1), commit and
+    open (the 12-word K2-K5) and `check` on the true and a wrong value.
+    Returns the 12-word launches (`cuda_build.WIDE`); fails unless every
+    12-word K1-K6 ran."""
+    import torch
+
+    from ckb_zkp_tpu_torch.host import poly as hpoly
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.ops.field import device_field
+    from ckb_zkp_tpu_torch.schemes import kzg10
+
+    curve = get_curve("bls12_381")
+    p = curve.fr.modulus
+    rng = random.Random(SEED + 14)
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    pp = kzg10.setup(curve, 1 << log2, rng, device=DEVICE)
+    ck, vk = kzg10.trim(pp, 1 << log2)
+    fr = device_field(curve.fr, DEVICE)
+    coeffs = [rng.randrange(p) for _ in range((1 << log2) + 1)]
+    point = rng.randrange(p)
+    value = hpoly.evaluate(coeffs, point, p)
+    for hiding in (None, 2):
+        cdev = fr.encode(coeffs)
+        comm, rand = kzg10.commit(ck, cdev, hiding, rng)
+        proof = kzg10.open_at(ck, cdev, point, rand)
+        ok = kzg10.check(vk, comm, point, value, proof)
+        bad = kzg10.check(vk, comm, point, (value + 1) % p, proof)
+        if ok is not True or bad is not False or (hiding is None) != (proof.rand_v is None):
+            raise AssertionError(f"KZG10 on BLS12-381 (hiding {hiding}): the opening does "
+                                 "not check, or a wrong value does")
+    torch.cuda.synchronize()
+    wide = dict(cuda_build.WIDE)
+    log(f"kzg10 bls12_381 degree 2^{log2}: setup, commit, open and check (hiding None and 2) "
+        f"in {time.perf_counter() - t0:.3f} s; 12-word launches {json.dumps(wide)} [{card}]")
+    missing = [k for k in MARLIN_KERNELS if wide[k] <= 0]
+    if missing:
+        raise AssertionError(f"12-word kernels not launched by the KZG10 round trip: {missing}")
+    return wide
+
+
 def phase_probes(results: dict, log2: int) -> dict:
     """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2), the
     scan probes' kernels P-tot, P-prepk, P-chain (G1, every K and block
@@ -2170,6 +2504,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 2
+    children: list = []
+    try:
+        return run_phases(args, children)
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+
+def run_phases(args, children: list) -> int:
+    import torch
+
     from ckb_zkp_tpu_torch.ops import cuda_build
 
     card = smi()
@@ -2187,6 +2534,8 @@ def main() -> int:
         if line.startswith("==") or any(
                 w in line for w in ("registers", "spill", "Function properties")):
             log(f"nvcc: {line.strip()}")
+    cpu_child = start_mini_cpu()  # after the build, which it would slow
+    children.append(cpu_child)
 
     results: dict = {}
     t0 = time.perf_counter()
@@ -2208,15 +2557,23 @@ def main() -> int:
     t3 = time.perf_counter()
     jac = phase_jacobian(card, run, args.log2)
     leaf = phase_jacobian_leaf(card)
-    run.pop("params")  # the BN254 keys' device memory, before the BLS12-381 slice
+    run.pop("params")  # the BN254 keys' device memory, before the Marlin phase
+    torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    wide = phase_wide(results, card, args.log2)
+    mar = phase_marlin(card, min(MARLIN_LOG2, args.log2))
+    torch.cuda.empty_cache()
+    phase_marlin_mini(card, cpu_child)
+    kzg_wide = phase_kzg_wide(card, min(KZG_WIDE_LOG2, args.log2))
+    torch.cuda.empty_cache()
+    log(f"marlin phase seconds: {json.dumps(mar['seconds'])} [{card}]")
     t5 = time.perf_counter()
-    probes = phase_probes(results, args.log2 + 1)
+    wide = phase_wide(results, card, args.log2)
     t6 = time.perf_counter()
+    probes = phase_probes(results, args.log2 + 1)
+    t7 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
-        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, bls12_381 {t5 - t4:.3f}, "
-        f"probes {t6 - t5:.3f} [{card}]")
+        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
+        f"bls12_381 {t6 - t5:.3f}, probes {t7 - t6:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -2234,7 +2591,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            | ({"marlin_launches": mar["launches"][name]} if name in MARLIN_KERNELS else {}))
     for row, name in WIDE_ROWS.items():
         r = results[row]
         src, replaces = KERNELS[name]
@@ -2250,7 +2608,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "kzg_launches": kzg_wide[name]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     log(card)
     log(json.dumps({"kernels": table}))

@@ -1,10 +1,11 @@
-"""Carry a reference proving key across to the port.
+"""Carry a reference proving key or SRS across to the port.
 
 `params_from_reference` turns the JAX package's Groth16 `Parameters`
 (query arrays as numpy or jax arrays of uint32 16-bit limbs) into the
 port's: the same layouts as int32 tensors on `device`, and host points
 rebuilt as the port's own classes (`host/curves.py`). Both provers then
-compute from the same key.
+compute from the same key. `srs_from_reference` does the same for a KZG10
+`UniversalParams` (Marlin's SRS).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 from .host.curves import AffinePoint
 from .host.pairing import get_curve
 from .ops.limbs import to_torch
+from .schemes import kzg10
 from .schemes.groth16.types import Parameters, VerifyKey
 
 _QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
@@ -47,4 +49,20 @@ def params_from_reference(params, device="cuda") -> Parameters:
         num_constraints=params.num_constraints,
         padded_queries=params.padded_queries,
         **queries,
+    )
+
+
+def srs_from_reference(srs, device="cuda") -> kzg10.UniversalParams:
+    """The JAX package's `kzg10.UniversalParams` as the port's: the power
+    arrays as int32 limb tensors on `device`, the points as host points."""
+    pt = point_from_reference
+    powers = lambda q: tuple(to_torch(np.asarray(c), device) for c in q)  # noqa: E731
+    return kzg10.UniversalParams(
+        curve=get_curve(srs.curve.name),
+        powers_of_g=powers(srs.powers_of_g),
+        powers_of_gamma_g=powers(srs.powers_of_gamma_g),
+        g=pt(srs.g),
+        gamma_g=pt(srs.gamma_g),
+        h=pt(srs.h),
+        beta_h=pt(srs.beta_h),
     )

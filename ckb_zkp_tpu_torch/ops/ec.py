@@ -106,7 +106,8 @@ def point_select(cf, mask, p, q):
 
 
 def stack_pairs(pairs):
-    shape = torch.broadcast_shapes(*(t.shape for ab in pairs for t in ab))
+    shapes = {t.shape for ab in pairs for t in ab}
+    shape = shapes.pop() if len(shapes) == 1 else torch.broadcast_shapes(*shapes)
     A = torch.stack([a.expand(shape) for a, _ in pairs])
     B = torch.stack([b.expand(shape) for _, b in pairs])
     return A, B

@@ -223,6 +223,9 @@ class DeviceField:
         rinv = pow(self.R, -1, p)
         return [x * rinv % p for x in limbs_to_ints(a.reshape(-1, self.L))]
 
+    def decode_scalar(self, a: torch.Tensor) -> int:
+        return self.decode(a.reshape(1, -1))[0]
+
 
 @functools.lru_cache(maxsize=None)
 def _device_field(spec, device: str) -> DeviceField:

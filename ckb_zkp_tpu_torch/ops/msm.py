@@ -309,22 +309,54 @@ class DeviceCurveGroup:
         """Jacobian point sum_i s_i P_i. P affine-encoded (Z in {0, one});
         scalars (N, L) canonical. Points padded wider than the scalars (the
         reference's pow2-padded G2 query arrays) get zero-extended scalars."""
+        P, scalars = self._msm_operands(P, scalars)
+        if self._use_rcb:
+            return tuple(c[0] for c in self._msm_rcb([(P, scalars)]))
+        self._check_jacobian()
+        # the Jacobian engine pads to a power of two, at least 8, with
+        # identity points and zero scalars (reference `ops/msm.py:576-586`)
+        n_pts = P[0].shape[0]
+        np2 = max(8, 1 << (n_pts - 1).bit_length())
+        if np2 != n_pts:
+            P = tuple(torch.cat([c, i]) for c, i in zip(P, self.p_identity((np2 - n_pts,))))
+            scalars = torch.cat([scalars, scalars.new_zeros((np2 - n_pts, scalars.shape[1]))])
+        return self._msm_impl(P, scalars)
+
+    def msm_many(self, jobs) -> list:
+        """[msm(P, scalars) for (P, scalars) in jobs], the same points. On
+        the RCB engine, MSMs of one window width whose padded lengths are
+        within a factor of two run as one batch: their windows share the
+        K2-K5 launches (each padded to the batch's longest with flagged
+        leaves and zero scalars), and one window fold of 272-288 K5
+        launches serves them all, where each MSM alone pays its own. The
+        Jacobian engine runs them one by one."""
+        if not self._use_rcb:
+            return [self.msm(P, s) for P, s in jobs]
+        jobs = [self._msm_operands(P, s) for P, s in jobs]
+        groups: list = []  # (window bits, shortest length, job indices)
+        for i in sorted(range(len(jobs)), key=lambda i: jobs[i][1].shape[0]):
+            n = jobs[i][1].shape[0]
+            c = self._msm_window_bits(n)
+            if groups and groups[-1][0] == c and n <= 2 * groups[-1][1]:
+                groups[-1][2].append(i)
+            else:
+                groups.append((c, max(n, _RCB_B), [i]))
+        out: list = [None] * len(jobs)
+        for _, _, idx in groups:
+            S = self._msm_rcb([jobs[j] for j in idx])
+            for r, j in enumerate(idx):
+                out[j] = tuple(c[r] for c in S)
+        return out
+
+    @staticmethod
+    def _msm_operands(P, scalars):
         n_pts = P[0].shape[0]
         n = scalars.shape[0]
         if n_pts > n:
             scalars = torch.cat([scalars, scalars.new_zeros((n_pts - n, scalars.shape[1]))])
         elif n_pts < n:
             raise ValueError(f"msm: {n_pts} points for {n} scalars")
-        if self._use_rcb:
-            return self._msm_rcb(P, scalars)
-        self._check_jacobian()
-        # the Jacobian engine pads to a power of two, at least 8, with
-        # identity points and zero scalars (reference `ops/msm.py:576-586`)
-        np2 = max(8, 1 << (n_pts - 1).bit_length())
-        if np2 != n_pts:
-            P = tuple(torch.cat([c, i]) for c, i in zip(P, self.p_identity((np2 - n_pts,))))
-            scalars = torch.cat([scalars, scalars.new_zeros((np2 - n_pts, scalars.shape[1]))])
-        return self._msm_impl(P, scalars)
+        return P, scalars
 
     @staticmethod
     def _msm_window_bits(n: int) -> int:
@@ -332,42 +364,61 @@ class DeviceCurveGroup:
         machinery amortizes, 8-bit below (reference `ops/msm.py:736-739`)."""
         return 16 if n >= (1 << 18) else 8
 
-    def _msm_rcb(self, P, scalars):
+    def _msm_rcb(self, jobs):
+        """(m,) Jacobian points, one an MSM of `jobs` [(P, scalars)], all
+        of the window width of the first. Every MSM is padded to the
+        longest's npad (a multiple of _RCB_B) and its packed leaves laid
+        out after the previous one's; row w of MSM j reads its leaves
+        through its sort order shifted by j * npad. The window sums of
+        all MSMs are folded together, one batch of m points a K5 launch."""
         rg, cf = self.rg, self.cf
-        n = scalars.shape[0]
-        c = self._msm_window_bits(n)
+        m = len(jobs)
+        c = self._msm_window_bits(jobs[0][1].shape[0])
         nwin = self.fr.L * BASE_BITS // c
-        X, Y, Z = P
-        inf = cf.is_zero(Z)
-        npad = _cdiv(n, _RCB_B) * _RCB_B
-        if npad != n:
-            extra = npad - n
-            X = torch.cat([X, X.new_zeros((extra, *X.shape[1:]))])
-            Y = torch.cat([Y, Y.new_zeros((extra, *Y.shape[1:]))])
-            inf = torch.cat([inf, inf.new_ones((extra,))])
-            scalars = torch.cat([scalars, scalars.new_zeros((extra, scalars.shape[1]))])
-        Xp, Yp = pack_limbs_flag(rg, X, Y, inf)
-        bitpos = torch.arange(nwin, device=scalars.device) * c
-        limbs = scalars.to(torch.int64)[:, bitpos // BASE_BITS]
-        digits = ((limbs >> (bitpos % BASE_BITS)) & ((1 << c) - 1)).T.contiguous()
-        batch = max(1, min(nwin, _WINDOW_BATCH_POINTS // npad))
+        npad = max(_cdiv(s.shape[0], _RCB_B) * _RCB_B for _, s in jobs)
+        Xs, Ys, infs, digits = [], [], [], []
+        bitpos = torch.arange(nwin, device=jobs[0][1].device) * c
+        for (X, Y, Z), scalars in jobs:
+            inf = cf.is_zero(Z)
+            extra = npad - scalars.shape[0]
+            if extra:
+                X = torch.cat([X, X.new_zeros((extra, *X.shape[1:]))])
+                Y = torch.cat([Y, Y.new_zeros((extra, *Y.shape[1:]))])
+                inf = torch.cat([inf, inf.new_ones((extra,))])
+                scalars = torch.cat([scalars, scalars.new_zeros((extra, scalars.shape[1]))])
+            Xs.append(X)
+            Ys.append(Y)
+            infs.append(inf)
+            limbs = scalars.to(torch.int64)[:, bitpos // BASE_BITS]
+            digits.append(((limbs >> (bitpos % BASE_BITS)) & ((1 << c) - 1)).T)
+        cat = (lambda t: t[0]) if m == 1 else torch.cat
+        Xp, Yp = pack_limbs_flag(rg, cat(Xs), cat(Ys), cat(infs))
+        digits = cat(digits).contiguous()  # (m * nwin, npad)
+        offsets = (torch.arange(m * nwin, device=digits.device) // nwin * npad
+                   if m > 1 else None)
+        batch = max(1, min(m * nwin, _WINDOW_BATCH_POINTS // npad))
         parts = [
-            self._windows(Xp, Yp, digits[w0 : w0 + batch], c)
-            for w0 in range(0, nwin, batch)
+            self._windows(Xp, Yp, digits[w0 : w0 + batch], c,
+                          None if offsets is None else offsets[w0 : w0 + batch])
+            for w0 in range(0, m * nwin, batch)
         ]
-        S = tuple(torch.cat(cs, dim=0) for cs in zip(*parts))  # (nwin,)
-        acc = rg.identity(())
+        S = tuple(torch.cat(cs, dim=0).reshape(m, nwin, *cs[0].shape[1:])
+                  for cs in zip(*parts))
+        acc = rg.identity((m,))
         for i in range(nwin):
             for _ in range(c):
                 acc = rg.add(acc, acc)
-            acc = rg.add(acc, tuple(s[nwin - 1 - i] for s in S))
+            acc = rg.add(acc, tuple(s[:, nwin - 1 - i] for s in S))
         return rg.to_jacobian(acc)
 
-    def _windows(self, Xp, Yp, digits, c: int):
+    def _windows(self, Xp, Yp, digits, c: int, offsets=None):
         """Window sums sum_b b * B_b for a (k, npad) batch of digit rows. K2
         reads each row's leaves through its sort order (leaf j of row w is
-        Xp[order[w, j]]), so no sorted copy of the leaves is written."""
+        Xp[order[w, j]], shifted by offsets[w] where rows of several MSMs
+        share the leaves), so no sorted copy of the leaves is written."""
         order = torch.sort(digits, dim=1).indices
+        if offsets is not None:
+            order = order + offsets.unsqueeze(1)
         W, T = scan_prefix_madd(self.rg, Xp, Yp, _RCB_B, order=order.reshape(-1))
         return self._weigh_buckets(self._bucket_prefixes(W, T, digits, c), c)
 
@@ -527,8 +578,14 @@ class DeviceCurveGroup:
         enc = self.encode_points([pt for row in rows for pt in row])
         return tuple(t.reshape(self.nwindows, self.nb, *t.shape[1:]) for t in enc)
 
+    def fixed_base(self, base_affine) -> "FixedBase":
+        """Lazy fixed-base context (reference `ops/msm.py:1068`): the window
+        table is built on its first use."""
+        return FixedBase(self, base_affine)
+
     def fixed_base_msm(self, table, scalars, pad_output: bool = False):
-        """[s_i * base] as affine-encoded points. Padding follows the
+        """[s_i * base] as affine-encoded points; `table` is a window table
+        or a `FixedBase`. Padding follows the
         reference's accelerator rules (`ops/msm.py:1002-1011`): the RCB
         engine pads G1 to a multiple of COL_ALIGN from COL_ALIGN up, G2
         (and small G1) to a power of two; the Jacobian engine pads every
@@ -551,6 +608,8 @@ class DeviceCurveGroup:
         inversion's temporaries as the reference's chunks do (an all-zero
         scalar's infinity, in another representative than the window
         loop's, normalizes to the same (0, 0, 0))."""
+        if isinstance(table, FixedBase):
+            table = table.table
         n = scalars.shape[0]
         if not self._use_rcb:
             self._check_jacobian()
@@ -583,6 +642,22 @@ class DeviceCurveGroup:
         inf = cf.is_zero(Z)
         z = point_select(cf, inf, (cf.zeros(inf.shape),), (cf.ones(inf.shape),))[0]
         return (xy[0], xy[1], z)
+
+
+class FixedBase:
+    """A base point and its window table, built at the first use (reference
+    `ops/msm.py:1074-1083`)."""
+
+    def __init__(self, dg: DeviceCurveGroup, base_affine):
+        self.dg = dg
+        self.base_affine = base_affine
+        self._table = None
+
+    @property
+    def table(self):
+        if self._table is None:
+            self._table = self.dg.fixed_base_table(self.base_affine)
+        return self._table
 
 
 _GROUPS: dict = {}

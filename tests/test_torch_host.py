@@ -27,7 +27,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the copies kept word for word (r1cs/system.py leaves out the witness cache)
 EXACT_COPIES = ("host/curves.py", "host/field.py", "host/pairing.py", "host/tower.py",
                 "r1cs/lc.py", "bench_circuits.py", "schemes/groth16/types.py",
-                "schemes/groth16/verifier.py", "serialize/ark.py", "circuits/mini.py")
+                "schemes/groth16/verifier.py", "serialize/ark.py", "circuits/mini.py",
+                "transcript/__init__.py", "transcript/keccak.py", "transcript/merlin.py",
+                "transcript/chacha.py", "host/poly.py", "serialize/tobytes.py",
+                "schemes/errors.py", "schemes/marlin/fs_rng.py")
 
 
 @pytest.mark.parametrize("path", EXACT_COPIES)

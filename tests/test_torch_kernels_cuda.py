@@ -1,6 +1,7 @@
 """Kernel against plain version on the card: chip_smoke.py's phases 3 to 8
-at a small size, BN254's 8-word kernels and BLS12-381's 12-word K1-K6.
-Marked `cuda`; without a card they skip."""
+at a small size, BN254's 8-word kernels and BLS12-381's 12-word K1-K6;
+the polynomial layer and a KZG10 commitment against the CPU and host ints,
+and the Marlin phase at 2^12. Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -299,3 +300,69 @@ def test_wide_front_ends_and_bytes(smoke):
     card = torch.cuda.get_device_name(0)
     smoke.phase_wide_frontends(card)
     smoke.phase_wide_bytes(card, smoke.phase_setup_check(10, "bls12_381"))
+
+
+def test_poly_layer_on_the_card_equals_the_cpu(smoke):
+    """`poly_divide_linear`, `poly_mul` and `HDomain`'s four transforms at
+    2^16 on the card (K1) equal their CPU results (K1's plain version)."""
+    import random
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import poly
+    from ckb_zkp_tpu_torch.ops.field import device_field
+    from ckb_zkp_tpu_torch.ops.hdomain import HDomain
+
+    spec = get_curve("bn254").fr
+    rng = random.Random(16)
+    n = 1 << 16
+    xs = [rng.randrange(spec.modulus) for _ in range(n)]
+    z = rng.randrange(spec.modulus)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        df = device_field(spec, dev)
+        c = df.encode(xs)
+        q, r = poly.poly_divide_linear(df, c, z)
+        m = poly.poly_mul(df, c[: n // 2], c[n // 2 :])
+        dom = HDomain(spec, n, dev)
+        out[dev] = (df.decode(q), df.decode_scalar(r), df.decode(m),
+                    *(getattr(dom, f)(xs) for f in ("fft", "ifft", "coset_fft", "coset_ifft")))
+    assert out["cuda"] == out["cpu"]
+
+
+def test_kzg10_commit_equals_the_host_msm(smoke):
+    """A KZG10 commitment over 2^17 powers on the card (K1-K6) equals the
+    host-int MSM of the same powers and coefficients."""
+    import random
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops.field import device_field
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+    from ckb_zkp_tpu_torch.schemes import kzg10
+
+    curve = get_curve("bn254")
+    n = 1 << 17
+    rng = random.Random(17)
+    pp = kzg10.setup(curve, n - 1, rng, device="cuda")
+    ck, _ = kzg10.trim(pp, n - 1)
+    coeffs = [rng.randrange(curve.fr.modulus) for _ in range(n)]
+    comm, _ = kzg10.commit(ck, device_field(curve.fr, "cuda").encode(coeffs))
+    powers = device_group(curve, "g1", "cuda").decode_points(ck.powers_of_g)
+    assert comm == curve.g1.msm(powers, coeffs)
+
+
+def test_marlin_phase_at_2_12(smoke):
+    """chip_smoke's Marlin phase at |H| = 2^12 (the smallest whose MSMs
+    launch K3), the Mini proof on the card against the CPU one, and the
+    BLS12-381 KZG10 round trip at degree 2^12."""
+    card = torch.cuda.get_device_name(0)
+    child = smoke.start_mini_cpu()
+    try:
+        run = smoke.phase_marlin(card, 12)
+        smoke.phase_marlin_mini(card, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert all(v > 0 for v in run["launches"].values())
+    assert run["division"]["k1_launches"] == run["division"]["rounds"]
+    assert all(v > 0 for v in smoke.phase_kzg_wide(card, 12).values())

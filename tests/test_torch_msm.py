@@ -65,6 +65,25 @@ def test_msm_matches_host_msm(group):
     assert _affine(got) == _affine(dg.host_group.msm(pts, sc))
 
 
+def test_msm_many_batches_equal_the_host_msms(monkeypatch):
+    """`msm_many` groups MSMs of one window width within 2x of each other's
+    length (here 3 and 40 points, then 70; one job's points 8 rows wider
+    than its scalars), and each result equals the host-int MSM."""
+    dg = device_group(CURVE, "g1", "cpu")
+    groups = []
+    real = dg._msm_rcb
+    monkeypatch.setattr(dg, "_msm_rcb", lambda jobs: groups.append(
+        [s.shape[0] for _, s in jobs]) or real(jobs))
+    inputs = [_inputs("g1", n, 10 + n) for n in (70, 3, 40)]
+    jobs = [(dg.encode_points(pts), dg.encode_scalars(sc)) for pts, sc in inputs]
+    pts, sc = inputs[2]
+    jobs[2] = (dg.encode_points(pts + pts[:8]), jobs[2][1])
+    got = [dg.decode_point(q) for q in dg.msm_many(jobs)]
+    assert groups == [[3, 48], [70]]
+    want = [CURVE.g1.msm(pts, sc) for pts, sc in inputs]
+    assert [_affine(p) for p in got] == [_affine(p) for p in want]
+
+
 def test_msm_window_bits_follow_reference():
     dg = device_group(CURVE, "g1", "cpu")
     rdg = ref_device_group(CURVE, "g1")
@@ -83,6 +102,9 @@ def test_fixed_base_msm_matches_host_mul(group):
     dg = device_group(CURVE, group, "cpu")
     table = dg.fixed_base_table(gen)
     out = dg.fixed_base_msm(table, dg.encode_scalars(sc), pad_output=True)
+    lazy = dg.fixed_base(gen)  # the reference's FixedBase: the table at first use
+    assert all(torch.equal(a, b) for a, b in zip(
+        dg.fixed_base_msm(lazy, dg.encode_scalars(sc), pad_output=True), out))
     assert out[0].shape[0] == 16  # pow2 padding, as the reference's rule
     got = dg.decode_points_host(out)
     assert [_affine(p) for p in got[: len(sc)]] == [_affine(host.mul(gen, s)) for s in sc]

@@ -15,7 +15,10 @@ import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import convert
 from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
+from ckb_zkp_tpu_torch.ops.hdomain import HDomain
+from ckb_zkp_tpu_torch.schemes import kzg10, marlin
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap, serialize
+from ckb_zkp_tpu_torch.schemes.marlin import ahp
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -29,6 +32,8 @@ from ckb_zkp_tpu_torch.host.pairing import get_curve
 from ckb_zkp_tpu_torch.schemes import groth16
 from ckb_zkp_tpu_torch.schemes.groth16 import serialize
 from ckb_zkp_tpu_torch.circuits import Mini
+import ckb_zkp_tpu_torch.schemes.marlin, ckb_zkp_tpu_torch.schemes.kzg10
+import ckb_zkp_tpu_torch.ops.poly, ckb_zkp_tpu_torch.ops.hdomain, ckb_zkp_tpu_torch.transcript
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -137,6 +142,9 @@ def test_source_scan_rejects_the_alias_loader():
     (mxu.make_inputs, "device"), (cuda_probe.band_mma_matrix, "device"),
     (grid.check, "device"), (grid.measure, "device"), (dma.check, "device"),
     (dma.measure, "device"), (dma.make_inputs, "device"), (dma.rand_words, "device"),
+    (HDomain.__init__, "device"), (kzg10.setup, "device"), (marlin.universal_setup, "device"),
+    (ahp.index, "device"), (ahp.verifier_first_round, "device"),
+    (convert.srs_from_reference, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
