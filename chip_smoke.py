@@ -70,7 +70,26 @@ opening's synthetic division in O(log n) launches; the Mini proof on the
 card equal to the port's CPU proof from the plain versions (a child
 process started before the build, `phase_marlin_mini`); a KZG10 round
 trip over BLS12-381 at degree 2^12 that launches every 12-word K1-K6
-(`kzg_launches` in the `_nw12` rows, `phase_kzg_wide`); (7)
+(`kzg_launches` in the `_nw12` rows, `phase_kzg_wide`);
+PLONK (`phase_plonk`): `Plonk.setup` (4n + 1 powers: K6 twice), `keygen`
+(the index, its transforms apart, `TransformClock`; its 11 commitments) and
+`prove` of a 2^16-gate square chain through the composer over BN254 with
+one public input, each stage timed (the host rounds, the `HDomain`
+transforms, the three commitments, the evaluations, the batch opening),
+`verify` on the public inputs and on a changed one, the vk and proof
+through their ark-0.2 bytes and back unchanged, the contract verifier's OK
+and ERR_VERIFY on those cells, every K1-K6 launched (`plonk_launches` in
+the kernel line's K1-K6 rows) and a warm prove under the profiler; the
+reference circuit of `tests/test_plonk.py` (BLS12-381, SRS 64) on the card
+with the CPU child's vk and proof bytes (`phase_plonk_reference`); aSVC
+(`phase_asvc`) over BLS12-381 at 2^20 positions: `key_gen` (five
+fixed-base MSMs on the card, G2's among them; its host tables and decodes
+timed apart) under the profiler, `commit` of 2^20 values, `prove_pos` and
+`verify_pos` at one and at 16 positions, `verify_upk`, `update_commit` +
+`update_proof` at the same position and another, `aggregate_proofs` of two
+proofs, each verdict as `tests/test_asvc.py` expects and wrong values
+refused, the 12-word K1-K6 and Fr's K1 launched (`asvc_launches` in the
+`_nw12` rows and the K1 row); (7)
 BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
@@ -1931,13 +1950,15 @@ def mini_proof(device: str) -> dict:
 
 
 def start_mini_cpu():
-    """The Mini proof from the plain versions on the host's CPU, in a child
-    process that runs while the kernels are checked (its torch on 2
-    threads). `finish_mini_cpu` reads it."""
+    """The Mini Marlin proof and the reference PLONK proof
+    (`plonk_reference_proof`) from the plain versions on the host's CPU, in
+    a child process that runs while the kernels are checked (its torch on
+    2 threads). `finish_mini_cpu` reads them: {"marlin": ..., "plonk": ...}."""
     import subprocess
 
     code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
-            "import chip_smoke; print(json.dumps(chip_smoke.mini_proof('cpu')))")
+            "import chip_smoke; print(json.dumps({'marlin': chip_smoke.mini_proof('cpu'), "
+            "'plonk': chip_smoke.plonk_reference_proof('cpu')}))")
     return subprocess.Popen([sys.executable, "-c", code, REPO], cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -2142,17 +2163,19 @@ def phase_marlin(card: str, log2: int = MARLIN_LOG2) -> dict:
             "division": div, "peak_bytes": peak, "warm": prof, "warm_stages": warm_t}
 
 
-def phase_marlin_mini(card: str, cpu_child) -> None:
+def phase_marlin_mini(card: str, cpu_child) -> dict:
     """The Mini proof on the card against the port's CPU proof from the
-    plain versions (computed by `cpu_child`), field for field."""
+    plain versions (computed by `cpu_child`), field for field. Returns the
+    child's proofs (the PLONK one is `phase_plonk_reference`'s)."""
     t0 = time.perf_counter()
     got = mini_proof(DEVICE)
     card_s = time.perf_counter() - t0
     want = finish_mini_cpu(cpu_child)
-    if got != want:
+    if got != want["marlin"]:
         raise AssertionError("the Mini Marlin proof on the card differs from the CPU one")
     log(f"marlin mini: the proof and vk bytes on the card ({card_s:.3f} s) equal the port's "
         f"CPU proof from the plain versions; both verify, [11] refused [{card}]")
+    return want
 
 
 def phase_kzg_wide(card: str, log2: int = KZG_WIDE_LOG2) -> dict:
@@ -2198,6 +2221,271 @@ def phase_kzg_wide(card: str, log2: int = KZG_WIDE_LOG2) -> dict:
     if missing:
         raise AssertionError(f"12-word kernels not launched by the KZG10 round trip: {missing}")
     return wide
+
+
+# ---------------------------------------------------------------- PLONK, aSVC
+PLONK_LOG2 = 16  # n = 2^16 gates (2^16 - 1 squarings and the public input's), 4n = 2^18
+ASVC_LOG2 = 20  # 2^20 positions over BLS12-381
+
+
+def plonk_square_chain(n_gates: int, p: int, x0: int):
+    """The smoke's PLONK circuit through the composer: x_(i+1) = x_i * x_i
+    (`create_mul_gate(x_i, x_i, x_(i+1))`) for n_gates - 1 gates, then the
+    last x made the one public input (`constrain_to_constant(x, 0, pi=x)`).
+    Returns the composer and its public inputs (zero but at that gate)."""
+    from ckb_zkp_tpu_torch.schemes.plonk import Composer
+
+    cs = Composer(p)
+    x = x0 % p
+    v = cs.alloc_and_assign(x)
+    for _ in range(n_gates - 1):
+        x = x * x % p
+        nxt = cs.alloc_and_assign(x)
+        cs.create_mul_gate(v, v, nxt)
+        v = nxt
+    cs.constrain_to_constant(v, 0, pi=x)
+    return cs, cs.public_inputs()
+
+
+def plonk_reference_proof(device: str) -> dict:
+    """`tests/test_plonk.py`'s circuit over BLS12-381 (SRS 64,
+    `random.Random(21)`) on `device`: the vk and proof bytes (hex). Fails
+    unless the proof verifies and `[1] + publics[1:]` is refused."""
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes.plonk import Composer, Plonk, default_ks
+    from ckb_zkp_tpu_torch.schemes.plonk import serialize as pser
+
+    curve = get_curve("bls12_381")
+    p = curve.fr.modulus
+    cs = Composer(p)
+    v1, v2, v3, v4, v6 = (cs.alloc_and_assign(x) for x in (1, 2, 3, 4, 6))
+    cs.create_add_gate((v1, 1), (v2, 1), v3)
+    cs.create_add_gate((v1, 1), (v3, 1), v4)
+    cs.create_mul_gate(v2, v2, v4)
+    cs.create_mul_gate(v1, v2, v6, q_m=2, q_c=2)
+    cs.constrain_to_constant(v6, 6)
+    rng = random.Random(21)
+    srs = Plonk.setup(curve, 64, rng, device=device)
+    pk, vk = Plonk.keygen(curve, srs, cs, default_ks(p))
+    proof = Plonk.prove(curve, pk, cs, rng)
+    publics = cs.public_inputs()
+    if not Plonk.verify(curve, vk, publics, proof) or Plonk.verify(
+            curve, vk, [1] + publics[1:], proof):
+        raise AssertionError(f"the reference PLONK proof on {device} does not verify, or a "
+                             "changed public input does")
+    return {"vk": pser.vk_to_bytes(curve, vk).hex(),
+            "proof": pser.proof_to_bytes(curve, proof).hex()}
+
+
+def phase_plonk(card: str, log2: int = PLONK_LOG2) -> dict:
+    """PLONK over BN254 on the card: `Plonk.setup` of 4n + 1 powers (K6
+    twice, K1), `keygen` (the index's transforms, K1; its 11 commitments,
+    K2-K5) and `prove` of the 2^log2-gate square chain, each stage timed
+    (the `HDomain` transforms apart from the host rounds, `TransformClock`),
+    `verify` on the public inputs and on a changed one; the vk and proof
+    through the ark-0.2 bytes and back unchanged; the contract verifier's OK
+    and ERR_VERIFY on those cells; every kernel of K1-K6 launched by the
+    phase; then a warm prove under the profiler. Returns the phase's
+    launches, seconds, stages, peak memory and the profile."""
+    import torch
+
+    from ckb_zkp_tpu_torch import contracts
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes.plonk import Plonk, default_ks
+    from ckb_zkp_tpu_torch.schemes.plonk import serialize as pser
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import FR, Vec, ark_encode
+
+    curve = get_curve("bn254")
+    p = curve.fr.modulus
+    n = 1 << log2
+    rng = random.Random(SEED + 17)
+    t0 = time.perf_counter()
+    cs, publics = plonk_square_chain(n, p, rng.randrange(2, p))
+    secs: dict = {"circuit": time.perf_counter() - t0}
+    clock = TransformClock()
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srs = Plonk.setup(curve, 4 * n, rng, device=DEVICE)
+    torch.cuda.synchronize()
+    secs["setup"] = time.perf_counter() - t0
+    log(f"plonk setup: {srs.max_degree + 1} powers, {secs['setup']:.3f} s; launches "
+        f"{json.dumps(cuda_build.COUNTS)} [{card}]")
+    with clock.installed():
+        keygen_t: dict = {}
+        t0 = time.perf_counter()
+        pk, vk = Plonk.keygen(curve, srs, cs, default_ks(p), keygen_t)
+        secs["keygen"] = time.perf_counter() - t0
+        keygen_dev = clock.take()
+        log(f"plonk keygen: {cs.size()} gates, n = {vk.info.n}, {secs['keygen']:.3f} s "
+            f"{json.dumps(keygen_t)}; HDomain device transforms {json.dumps(keygen_dev)} "
+            f"[{card}]")
+        prove_t: dict = {}
+        t0 = time.perf_counter()
+        proof = Plonk.prove(curve, pk, cs, rng, prove_t)
+        secs["prove"] = time.perf_counter() - t0
+        prove_dev = clock.take()
+    log(f"plonk prove: {secs['prove']:.3f} s {json.dumps(prove_t)}; HDomain device "
+        f"transforms {json.dumps(prove_dev)} [{card}]")
+    bad = publics[:-1] + [(publics[-1] + 1) % p]
+    t0 = time.perf_counter()
+    ok = Plonk.verify(curve, vk, publics, proof)
+    secs["verify"] = time.perf_counter() - t0
+    refused = Plonk.verify(curve, vk, bad, proof) is False
+    launches = {k: cuda_build.COUNTS[k] for k in MARLIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"plonk verify: {ok} in {secs['verify']:.3f} s; changed public input refused: "
+        f"{refused}")
+    if ok is not True or not refused:
+        raise AssertionError("the PLONK proof does not verify, or one with a changed public "
+                             "input does")
+    t0 = time.perf_counter()
+    vk_cell, proof_cell = pser.vk_to_bytes(curve, vk), pser.proof_to_bytes(curve, proof)
+    vk2, proof2 = pser.vk_from_bytes(curve, vk_cell), pser.proof_from_bytes(curve, proof_cell)
+    if (pser.vk_to_bytes(curve, vk2) != vk_cell or pser.proof_to_bytes(curve, proof2)
+            != proof_cell or proof2 != proof or vk2.comms != vk.comms or vk2.info != vk.info):
+        raise AssertionError("the PLONK vk or proof does not come back unchanged from its bytes")
+    secs["bytes"] = time.perf_counter() - t0
+    codes = [contracts.universal_plonk_verifier("bn254", vk_cell, proof_cell,
+                                                ark_encode(curve, x, Vec(FR)))
+             for x in (publics, bad)]
+    log(f"plonk bytes: vk {len(vk_cell)} B, proof {len(proof_cell)} B, round trip "
+        f"{secs['bytes']:.3f} s; universal_plonk_verifier on the cells: {codes} (OK "
+        f"{contracts.OK}, ERR_VERIFY {contracts.ERR_VERIFY})")
+    if codes != [contracts.OK, contracts.ERR_VERIFY]:
+        raise AssertionError(f"the PLONK contract verifier gave {codes} on the cells")
+    log(f"plonk launches (setup to the contract verifier): {json.dumps(cuda_build.COUNTS)}; "
+        f"peak device memory {peak} bytes [{card}]")
+    missing = [k for k in MARLIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the PLONK phase: {missing}")
+    warm_t: dict = {}
+    prof = profiled(lambda: Plonk.prove(curve, pk, cs, random.Random(SEED + 18), warm_t))
+    log(f"plonk prove, warm, profiled: {json.dumps(prof)}; stages {json.dumps(warm_t)} "
+        f"[{card}]")
+    return {"launches": launches, "seconds": secs, "keygen_stages": keygen_t,
+            "prove_stages": prove_t, "keygen_device": keygen_dev, "prove_device": prove_dev,
+            "peak_bytes": peak, "warm": prof, "warm_stages": warm_t}
+
+
+def phase_plonk_reference(card: str, want: dict) -> None:
+    """The reference PLONK circuit's vk and proof bytes on the card against
+    the port's CPU ones from the plain versions (`start_mini_cpu`'s child)."""
+    t0 = time.perf_counter()
+    got = plonk_reference_proof(DEVICE)
+    if got != want:
+        raise AssertionError("the reference PLONK proof on the card differs from the CPU one")
+    log(f"plonk reference circuit (bls12_381): the vk and proof bytes on the card "
+        f"({time.perf_counter() - t0:.3f} s) equal the port's CPU ones; both verify, "
+        f"[1] + publics[1:] refused [{card}]")
+
+
+def phase_asvc(card: str, log2: int = ASVC_LOG2) -> dict:
+    """aSVC over BLS12-381 at 2^log2 positions on the card: `key_gen` (its
+    stages timed: the tau powers, the host window tables, the fixed-base
+    MSMs of the G1 and G2 powers and of the update keys, the host decode
+    of the G2 powers and of the update keys) under the profiler; `commit`
+    of 2^log2 random values; `prove_pos`/`verify_pos` at one position and
+    at 16, a wrong value refused; `verify_upk` on the right and a wrong
+    position; `update_commit` + `update_proof` at the same position and at
+    another; `aggregate_proofs` of two single-position proofs, each and
+    the aggregate verified. Fails unless every verdict is as
+    `tests/test_asvc.py` expects and the phase launched the 12-word K1-K6,
+    the fixed-base K6 five times (G1 powers, G2 powers, a_i, l_i, u_i).
+    Returns the launches (12-word: `wide`; K1 at 8 words, Fr: `fr_mont_mul`),
+    the seconds, key_gen's stages, peak memory and the profile."""
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes import asvc
+
+    curve = get_curve("bls12_381")
+    p = curve.fr.modulus
+    n = 1 << log2
+    rng = random.Random(SEED + 19)
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs: dict = {}
+    kg: dict = {}
+    out: dict = {}
+    prof = profiled(lambda: out.update(params=asvc.key_gen(curve, n, rng, DEVICE, kg)))
+    params = out["params"]
+    secs["key_gen"] = prof["wall_s"]
+    fixed = cuda_build.WIDE["rcb_fixed_base"]
+    peak_key_gen = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"asvc key_gen: n = {params.n}, {secs['key_gen']:.3f} s {json.dumps(kg)}; "
+        f"12-word fixed-base launches {fixed}; peak device memory {peak_key_gen} bytes; "
+        f"profiled {json.dumps(prof)} [{card}]")
+    if fixed != 5 or len(params.verification_key.powers_of_g2) != n + 1:
+        raise AssertionError("aSVC's key_gen did not run the five fixed-base MSMs (G1 powers, "
+                             "G2 powers, a_i, l_i, u_i) on the card")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    t0 = time.perf_counter()
+    values = [rng.randrange(p) for _ in range(n)]
+    secs["values"] = time.perf_counter() - t0
+    c = timed("commit", lambda: asvc.commit(params, values))
+    i, j, k = rng.sample(range(n), 3)
+    many = sorted(rng.sample(range(n), 16))
+    uks = params.proving_key.update_keys
+    delta = rng.randrange(p)
+    proof_i = timed("prove_pos_1", lambda: asvc.prove_pos(params, values, [i]))
+    proof_many = timed("prove_pos_16", lambda: asvc.prove_pos(params, values, many))
+    proof_k = timed("prove_pos_1", lambda: asvc.prove_pos(params, values, [k]))
+    swapped = [values[x] for x in many]
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    verdicts = {
+        "pos_1": timed("verify_pos_1", lambda: asvc.verify_pos(params, c, [values[i]], [i],
+                                                               proof_i)),
+        "pos_1_wrong": not asvc.verify_pos(params, c, [(values[i] + 1) % p], [i], proof_i),
+        "pos_16": timed("verify_pos_16", lambda: asvc.verify_pos(
+            params, c, [values[x] for x in many], many, proof_many)),
+        "pos_16_swapped": not asvc.verify_pos(params, c, swapped, many, proof_many),
+        "upk": timed("verify_upk", lambda: asvc.verify_upk(params, i, uks[i])),
+        "upk_wrong": not asvc.verify_upk(params, j, uks[i]),
+    }
+    t0 = time.perf_counter()
+    uc_i = asvc.update_commit(params, c, delta, i, uks[i])
+    same = asvc.update_proof(params, proof_i, delta, i, i, uks[i], uks[i])
+    uc_j = asvc.update_commit(params, c, delta, j, uks[j])
+    other = asvc.update_proof(params, proof_i, delta, i, j, uks[i], uks[j])
+    agg = asvc.aggregate_proofs(params, [i, k], [proof_i, proof_k])
+    secs["update_and_aggregate"] = time.perf_counter() - t0
+    verdicts |= {
+        "update_same": asvc.verify_pos(params, uc_i, [(values[i] + delta) % p], [i], same),
+        "update_other": asvc.verify_pos(params, uc_j, [values[i]], [i], other),
+        "pos_k": asvc.verify_pos(params, c, [values[k]], [k], proof_k),
+        "aggregate": asvc.verify_pos(params, c, [values[i], values[k]], [i, k], agg),
+        "aggregate_wrong": not asvc.verify_pos(params, c, [values[k], values[i]], [i, k], agg),
+    }
+    torch.cuda.synchronize()
+    wide = dict(cuda_build.WIDE)
+    fr_k1 = cuda_build.COUNTS["mont_mul"] - wide["mont_mul"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"asvc 2^{log2}: seconds {json.dumps(secs)}; verdicts {json.dumps(verdicts)}; "
+        f"12-word launches {json.dumps(wide)}, Fr K1 {fr_k1}; peak device memory after "
+        f"key_gen {peak} bytes [{card}]")
+    wrong = [name for name, v in verdicts.items() if v is not True]
+    if wrong:
+        raise AssertionError(f"aSVC verdicts not as expected: {wrong}")
+    missing = [name for name in MARLIN_KERNELS if wide[name] <= 0] + (
+        [] if fr_k1 > 0 else ["mont_mul (8 words, Fr)"])
+    if missing:
+        raise AssertionError(f"kernels not launched by the aSVC phase: {missing}")
+    return {"wide": wide, "fr_mont_mul": fr_k1, "seconds": secs, "key_gen_stages": kg,
+            "peak_bytes": max(peak, peak_key_gen), "peak_key_gen_bytes": peak_key_gen,
+            "profile": prof}
 
 
 def phase_probes(results: dict, log2: int) -> dict:
@@ -2562,18 +2850,27 @@ def run_phases(args, children: list) -> int:
     t4 = time.perf_counter()
     mar = phase_marlin(card, min(MARLIN_LOG2, args.log2))
     torch.cuda.empty_cache()
-    phase_marlin_mini(card, cpu_child)
+    cpu_proofs = phase_marlin_mini(card, cpu_child)
     kzg_wide = phase_kzg_wide(card, min(KZG_WIDE_LOG2, args.log2))
     torch.cuda.empty_cache()
     log(f"marlin phase seconds: {json.dumps(mar['seconds'])} [{card}]")
     t5 = time.perf_counter()
-    wide = phase_wide(results, card, args.log2)
+    plonk = phase_plonk(card, min(PLONK_LOG2, args.log2))
+    torch.cuda.empty_cache()
+    phase_plonk_reference(card, cpu_proofs["plonk"])
+    log(f"plonk phase seconds: {json.dumps(plonk['seconds'])} [{card}]")
     t6 = time.perf_counter()
-    probes = phase_probes(results, args.log2 + 1)
+    asvc_run = phase_asvc(card, min(ASVC_LOG2, args.log2))
+    torch.cuda.empty_cache()
     t7 = time.perf_counter()
+    wide = phase_wide(results, card, args.log2)
+    t8 = time.perf_counter()
+    probes = phase_probes(results, args.log2 + 1)
+    t9 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
         f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
-        f"bls12_381 {t6 - t5:.3f}, probes {t7 - t6:.3f} [{card}]")
+        f"plonk {t6 - t5:.3f}, asvc {t7 - t6:.3f}, bls12_381 {t8 - t7:.3f}, "
+        f"probes {t9 - t8:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -2592,7 +2889,9 @@ def run_phases(args, children: list) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-            | ({"marlin_launches": mar["launches"][name]} if name in MARLIN_KERNELS else {}))
+            | ({"marlin_launches": mar["launches"][name],
+                "plonk_launches": plonk["launches"][name]} if name in MARLIN_KERNELS else {})
+            | ({"asvc_launches": asvc_run["fr_mont_mul"]} if name == "mont_mul" else {}))
     for row, name in WIDE_ROWS.items():
         r = results[row]
         src, replaces = KERNELS[name]
@@ -2609,7 +2908,7 @@ def run_phases(args, children: list) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "kzg_launches": kzg_wide[name]}
+            "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     log(card)
     log(json.dumps({"kernels": table}))

@@ -1,0 +1,124 @@
+"""Portable verifier entry points mirroring the on-chain contracts: their
+pairing half.
+
+Port of the reference's `contracts.py` (`:26-128`): the error codes,
+`_frs_from_cell` and the Groth16, Marlin and PLONK entry points word for
+word, routed to the port's schemes and codecs. The reference ships 10
+no_std RISC-V contracts that load vk / proof / public-input bytes from
+transaction cell data and run the layer-3 verifier inside CKB-VM (ckb-zkp
+ckb-contracts/contracts/universal_groth16_verifier/src/entry.rs:12-42);
+these entry points keep their cell-data semantics: three byte strings in,
+accept/reject out, over the same ark-0.2 wire formats
+(serialize/ark_schemes.py):
+
+- groth16 / marlin / plonk: vk cell = key bytes, proof cell = proof bytes,
+  publics = Fr bytes (plonk: Vec<Fr> with u64 length prefix, as its
+  entry.rs reads; the rest: concatenated 32/48-byte Fr words).
+
+Groth16's verifier is host ints only. Marlin's and PLONK's verifiers run
+their `HDomain` transforms above `HDomain.HOST_SIZE` on a device: they
+take `device` (default "cuda") and decode the verifying key onto it. The
+`except` clauses map decode and verify errors to the cell codes as the
+reference does; an error of a CUDA launch (a RuntimeError) is not a
+verdict and propagates. The Spartan, Bulletproofs, Libra and Hyrax entry
+points (`:131-281`) come with their schemes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .host.pairing import get_curve
+from .schemes import groth16
+from .schemes.groth16 import serialize as g16ser
+from .serialize.ark_schemes import FR, Vec, ark_decode
+
+# error codes mirror the contracts' i8 Error enums (entry.rs / error.rs)
+OK = 0
+ERR_ENCODING = 1
+ERR_VERIFY = 2
+
+def _frs_from_cell(curve, publics_cell: bytes) -> list[int] | None:
+    """Concatenated fixed-width Fr words -> ints, or None on bad encoding."""
+    nb = curve.fr.nbytes
+    if len(publics_cell) % nb:
+        return None
+    out = [
+        int.from_bytes(publics_cell[i : i + nb], "little")
+        for i in range(0, len(publics_cell), nb)
+    ]
+    if any(x >= curve.fr.modulus for x in out):
+        return None
+    return out
+
+
+def universal_groth16_verifier(
+    curve_name: str, vk_cell: bytes, proof_cell: bytes, publics_cell: bytes
+) -> int:
+    """entry::main for the groth16 contract: cells 0/1/2 = vk, proof, publics."""
+    curve = get_curve(curve_name)
+    try:
+        vk = g16ser.vk_from_bytes(curve, vk_cell)
+        proof = g16ser.proof_from_bytes(curve, proof_cell)
+        nb = curve.fr.nbytes
+        if len(publics_cell) % nb:
+            return ERR_ENCODING
+        publics = [
+            int.from_bytes(publics_cell[i : i + nb], "little")
+            for i in range(0, len(publics_cell), nb)
+        ]
+        if any(x >= curve.fr.modulus for x in publics):
+            return ERR_ENCODING
+    except (ValueError, EOFError, IndexError):
+        return ERR_ENCODING
+    pvk = groth16.prepare_verifying_key(curve, vk)
+    return OK if groth16.verify_proof(curve, pvk, proof, publics) else ERR_VERIFY
+
+
+def universal_marlin_verifier(
+    curve_name: str, vk_cell: bytes, proof_cell: bytes, publics_cell: bytes,
+    device="cuda",
+) -> int:
+    """universal_marlin_verifier/src/entry.rs: cells = ivk, proof, publics
+    (all ark-0.2 CanonicalSerialize bytes); the ivk is decoded onto
+    `device`."""
+    curve = get_curve(curve_name)
+    from .schemes.marlin import marlin
+
+    try:
+        ivk = ark_decode(curve, vk_cell, marlin.IndexVerifierKey, device)
+        proof = ark_decode(curve, proof_cell, marlin.Proof)
+        publics = _frs_from_cell(curve, publics_cell)
+        if publics is None:
+            return ERR_ENCODING
+    except (ValueError, EOFError, IndexError, TypeError):
+        return ERR_ENCODING
+    try:
+        ok = marlin.verify_proof(ivk, proof, publics)
+    except (ValueError, AssertionError, ZeroDivisionError, IndexError):
+        return ERR_VERIFY
+    return OK if ok else ERR_VERIFY
+
+
+def universal_plonk_verifier(
+    curve_name: str, vk_cell: bytes, proof_cell: bytes, publics_cell: bytes,
+    device="cuda",
+) -> int:
+    """universal_plonk_verifier/src/entry.rs: ark vk + proof bytes; publics
+    cell = Vec<Fr> (u64 length prefix, entry.rs:49-50); the vk is decoded
+    onto `device`."""
+    curve = get_curve(curve_name)
+    from .schemes.plonk import serialize as pser
+    from .schemes.plonk.plonk import Plonk
+
+    try:
+        vk = dataclasses.replace(pser.vk_from_bytes(curve, vk_cell), device=device)
+        proof = pser.proof_from_bytes(curve, proof_cell)
+        publics = ark_decode(curve, publics_cell, Vec(FR))
+    except (ValueError, EOFError, IndexError, TypeError):
+        return ERR_ENCODING
+    try:
+        ok = Plonk.verify(curve, vk, list(publics), proof)
+    except (ValueError, AssertionError, ZeroDivisionError, IndexError):
+        return ERR_VERIFY
+    return OK if ok else ERR_VERIFY

@@ -5,7 +5,8 @@
 port's: the same layouts as int32 tensors on `device`, and host points
 rebuilt as the port's own classes (`host/curves.py`). Both provers then
 compute from the same key. `srs_from_reference` does the same for a KZG10
-`UniversalParams` (Marlin's SRS).
+`UniversalParams` (Marlin's and PLONK's SRS), `asvc_params_from_reference`
+for aSVC's `Parameters`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 from .host.curves import AffinePoint
 from .host.pairing import get_curve
 from .ops.limbs import to_torch
-from .schemes import kzg10
+from .schemes import asvc, kzg10
 from .schemes.groth16.types import Parameters, VerifyKey
 
 _QUERIES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
@@ -65,4 +66,29 @@ def srs_from_reference(srs, device="cuda") -> kzg10.UniversalParams:
         gamma_g=pt(srs.gamma_g),
         h=pt(srs.h),
         beta_h=pt(srs.beta_h),
+    )
+
+
+def asvc_params_from_reference(params, device="cuda") -> asvc.Parameters:
+    """The JAX package's aSVC `Parameters` as the port's: the device point
+    arrays (the G1 powers, the Lagrange commitments) as int32 limb tensors
+    on `device`, the update keys, `a` and the G2 powers as host points."""
+    pt = point_from_reference
+    powers = lambda q: tuple(to_torch(np.asarray(c), device) for c in q)  # noqa: E731
+    pk, vk = params.proving_key, params.verification_key
+    powers_of_g1 = powers(pk.powers_of_g1)
+    return asvc.Parameters(
+        curve=get_curve(params.curve.name),
+        proving_key=asvc.ProvingKey(
+            powers_of_g1=powers_of_g1,
+            l_of_g1=powers(pk.l_of_g1),
+            update_keys=[asvc.UpdateKey(ai=pt(u.ai), ui=pt(u.ui)) for u in pk.update_keys],
+        ),
+        verification_key=asvc.VerificationKey(
+            powers_of_g1=powers_of_g1,
+            powers_of_g2=[pt(g) for g in vk.powers_of_g2],
+            a=pt(vk.a),
+        ),
+        n=params.n,
+        omega=params.omega,
     )

@@ -30,7 +30,9 @@ EXACT_COPIES = ("host/curves.py", "host/field.py", "host/pairing.py", "host/towe
                 "schemes/groth16/verifier.py", "serialize/ark.py", "circuits/mini.py",
                 "transcript/__init__.py", "transcript/keccak.py", "transcript/merlin.py",
                 "transcript/chacha.py", "host/poly.py", "serialize/tobytes.py",
-                "schemes/errors.py", "schemes/marlin/fs_rng.py")
+                "schemes/errors.py", "schemes/marlin/fs_rng.py",
+                "schemes/plonk/composer.py", "schemes/plonk/__init__.py",
+                "schemes/plonk/serialize.py")
 
 
 @pytest.mark.parametrize("path", EXACT_COPIES)

@@ -1,7 +1,9 @@
 """Kernel against plain version on the card: chip_smoke.py's phases 3 to 8
 at a small size, BN254's 8-word kernels and BLS12-381's 12-word K1-K6;
 the polynomial layer and a KZG10 commitment against the CPU and host ints,
-and the Marlin phase at 2^12. Marked `cuda`; without a card they skip."""
+the Marlin phase at 2^12; the reference PLONK circuit and aSVC's key_gen
+at 2^12 on the card against the CPU, and the PLONK and aSVC phases at
+2^13. Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -366,3 +368,43 @@ def test_marlin_phase_at_2_12(smoke):
     assert all(v > 0 for v in run["launches"].values())
     assert run["division"]["k1_launches"] == run["division"]["rounds"]
     assert all(v > 0 for v in smoke.phase_kzg_wide(card, 12).values())
+
+
+def test_plonk_reference_circuit_on_the_card_equals_the_cpu(smoke):
+    """`tests/test_plonk.py`'s circuit over BLS12-381 (SRS 64): the vk and
+    proof bytes on the card (K1-K6) equal the CPU's (their plain versions)."""
+    assert smoke.plonk_reference_proof("cuda") == smoke.plonk_reference_proof("cpu")
+
+
+def test_asvc_key_gen_on_the_card_equals_the_cpu(smoke):
+    """aSVC's key_gen at n = 2^12 over BLS12-381 on the card (the 12-word
+    fixed-base K6 on G1 and G2, K1) equals the CPU's, the G2 powers
+    included."""
+    import random
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import asvc
+
+    curve = get_curve("bls12_381")
+    card, cpu = (asvc.key_gen(curve, 1 << 12, random.Random(12), device=d)
+                 for d in ("cuda", "cpu"))
+    for name in ("powers_of_g1", "l_of_g1"):
+        got, want = getattr(card.proving_key, name), getattr(cpu.proving_key, name)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), name
+    assert card.proving_key.update_keys == cpu.proving_key.update_keys
+    assert card.verification_key.powers_of_g2 == cpu.verification_key.powers_of_g2
+    assert len(card.verification_key.powers_of_g2) == (1 << 12) + 1
+    assert (card.verification_key.a, card.n, card.omega) == (
+        cpu.verification_key.a, cpu.n, cpu.omega)
+
+
+def test_plonk_and_asvc_phases_at_2_13(smoke):
+    """chip_smoke's PLONK phase at n = 2^13 gates and its aSVC phase at
+    2^13 positions (the smallest whose MSMs launch K3: more than 128
+    block totals a window): every verdict, and every kernel of each phase
+    launched."""
+    card = torch.cuda.get_device_name(0)
+    run = smoke.phase_plonk(card, 13)
+    assert all(v > 0 for v in run["launches"].values())
+    wide = smoke.phase_asvc(card, 13)
+    assert all(v > 0 for v in wide["wide"].values()) and wide["fr_mont_mul"] > 0

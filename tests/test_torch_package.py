@@ -12,13 +12,16 @@ import sys
 import pytest
 
 import ckb_zkp_tpu_torch
-from ckb_zkp_tpu_torch import convert
+from ckb_zkp_tpu_torch import contracts, convert
 from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
 from ckb_zkp_tpu_torch.ops.hdomain import HDomain
-from ckb_zkp_tpu_torch.schemes import kzg10, marlin
+from ckb_zkp_tpu_torch.schemes import asvc, kzg10, marlin
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap, serialize
 from ckb_zkp_tpu_torch.schemes.marlin import ahp
+from ckb_zkp_tpu_torch.schemes.plonk import Plonk
+from ckb_zkp_tpu_torch.schemes.plonk.plonk import VerifierKey as PlonkVerifierKey
+from ckb_zkp_tpu_torch.serialize import ark_schemes
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -34,6 +37,9 @@ from ckb_zkp_tpu_torch.schemes.groth16 import serialize
 from ckb_zkp_tpu_torch.circuits import Mini
 import ckb_zkp_tpu_torch.schemes.marlin, ckb_zkp_tpu_torch.schemes.kzg10
 import ckb_zkp_tpu_torch.ops.poly, ckb_zkp_tpu_torch.ops.hdomain, ckb_zkp_tpu_torch.transcript
+import ckb_zkp_tpu_torch.schemes.plonk, ckb_zkp_tpu_torch.schemes.plonk.serialize
+import ckb_zkp_tpu_torch.schemes.asvc, ckb_zkp_tpu_torch.contracts
+import ckb_zkp_tpu_torch.serialize.ark_schemes, ckb_zkp_tpu_torch.convert
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -144,7 +150,12 @@ def test_source_scan_rejects_the_alias_loader():
     (dma.measure, "device"), (dma.make_inputs, "device"), (dma.rand_words, "device"),
     (HDomain.__init__, "device"), (kzg10.setup, "device"), (marlin.universal_setup, "device"),
     (ahp.index, "device"), (ahp.verifier_first_round, "device"),
-    (convert.srs_from_reference, "device"),
+    (convert.srs_from_reference, "device"), (Plonk.setup, "device"), (Plonk.index, "device"),
+    (PlonkVerifierKey, "device"), (asvc.key_gen, "device"),
+    (convert.asvc_params_from_reference, "device"),
+    (contracts.universal_marlin_verifier, "device"),
+    (contracts.universal_plonk_verifier, "device"),
+    (ark_schemes.ArkSchemeCodec.__init__, "device"), (ark_schemes.ark_decode, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
