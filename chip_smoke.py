@@ -89,7 +89,25 @@ timed apart) under the profiler, `commit` of 2^20 values, `prove_pos` and
 `update_proof` at the same position and another, `aggregate_proofs` of two
 proofs, each verdict as `tests/test_asvc.py` expects and wrong values
 refused, the 12-word K1-K6 and Fr's K1 launched (`asvc_launches` in the
-`_nw12` rows and the K1 row); (7)
+`_nw12` rows and the K1 row); Spartan (`phase_spartan`, which runs after
+the BLS12-381 phase (7), when the CPU child of its Mini proofs is done;
+after K1 at curve25519's two fields against its plain version at 2^20
+rows, `phase_spartan_kernels`): the runs of SPARTAN_RUNS, square chains whose
+witness count equals their constraint count: (a) a BN254 NIZK of 2^20
+constraints, alone and under the profiler, verified through its contract
+verifier (OK, ERR_VERIFY on a changed public input), whose witness
+commitment's 1024 row MSMs run on the RCB engine (K1, K2, K5 required),
+then (b) a curve25519 NIZK of 2^19 on the Ristretto group (K1 at
+2^255 - 19 and at l required) and (c) a BN254 SNARK of 2^16 constraints
+(contract verifier too; its generators one fixed-base MSM on the card), in
+child processes beside each other, each with its setup, hash, prove and
+verify seconds and stages, its device and host calls of
+`msm_over_fixed_base` and of the sumchecks as the launches show them
+(`spartan_counted`: a run with no device call of either fails), the proof
+and vk bytes round trip, and the Mini NIZK and SNARK proofs on both curves
+with both thresholds at 2 in a child on the card against a CPU child's
+bytes (`spartan_launches` in the
+K1-K5 rows, two K1 rows for curve25519's fields); (7)
 BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
@@ -99,10 +117,10 @@ against the host group, then `fixed_base_checks` with the plain version
 on the first WIDE_FB_PLAIN_ROWS points at the setup's width, `team_checks`
 and `scan_level_checks`), the port's MSM against the host ints and the
 Jacobian engine's refusal at 12 words (it has no 12-word kernel: a launch
-raises); the 2^14 setup check; the 2^log2 slice (setup, proves, verdicts,
+raises); the 2^12 setup check; the 2^log2 slice (setup, proves, verdicts,
 memory), which must launch the 12-word K6 5 times and every 12-word K1-K5
 (`cuda_build.WIDE`); the front ends on Mini (random and no-zk proofs
-verify, a wrong public input is refused); and the 2^14 setup check's keys
+verify, a wrong public input is refused); and the 2^12 setup check's keys
 through the key, proof and vk bytes, the decoded keys proving the same
 proof; (8) the probes (`ckb_zkp_tpu_torch/probes/`): K2a and K2b (G1, G2) and the
 scan probes' kernels P-tot, P-prepk and P-chain (G1, every K and block
@@ -141,7 +159,9 @@ these functions, so `library_ms` is null, except for P15 (one
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table (a row for
 each 8-word kernel and one, named "<kernel>_nw12", for each 12-word
-instance of K1-K6, its launches from the BLS12-381 slice). Without a
+instance of K1-K6, its launches from the BLS12-381 slice; K1 at
+curve25519's fields as "mont_mul_25519_fq" and "mont_mul_25519_fr", their
+launches from the Spartan run (b)). Without a
 CUDA device, or without the rest of the repository, it exits non-zero and
 prints no result.
 """
@@ -1866,7 +1886,9 @@ def phase_wide_bytes(card: str, run: dict) -> dict:
 
 def phase_wide(results: dict, card: str, log2: int) -> dict:
     """The BLS12-381 phase: the 12-word kernels (`phase_wide_kernels`), the
-    2^min(14, log2) device setup against host mode (`phase_setup_check`),
+    2^min(12, log2) device setup against host mode (`phase_setup_check`;
+    2^12 since the Spartan phase came: at 2^14 its keys' host decode took
+    78-99 s beside an NVIDIA H100 80GB HBM3, 700.00 W),
     the 2^log2 slice's setup, proves and verdicts (`phase_slice`), the
     front ends on Mini and the key, proof and vk bytes of the setup
     check's keys. Returns the slice's run with each part's seconds."""
@@ -1880,7 +1902,7 @@ def phase_wide(results: dict, card: str, log2: int) -> dict:
     log(f"fixed base bls12_381 (K6 at 12 words, 2^{log2}, {card}): {json.dumps(fixed)}")
     torch.cuda.empty_cache()
     marks.append(time.perf_counter())
-    check = phase_setup_check(min(14, log2), "bls12_381")
+    check = phase_setup_check(min(12, log2), "bls12_381")
     marks.append(time.perf_counter())
     run = phase_slice(card, log2, "bls12_381")
     del run["params"]
@@ -1906,8 +1928,8 @@ KZG_WIDE_LOG2 = 12  # the BLS12-381 KZG10 round trip's degree
 class SquareChain:
     """x_i * x_i = x_(i+1) for i < n, x_n the one public input: the shape of
     `bench_circuits.square_chain_shape` as a ConstraintSynthesizer (the
-    smoke's own Marlin circuit). n + 2 variables (ONE, x_n, x_0..x_(n-1));
-    x0 None synthesizes without values (the indexer's mode)."""
+    smoke's own Marlin and Spartan circuit). n + 2 variables (ONE, x_n,
+    x_0..x_(n-1)); x0 None synthesizes without values (the indexer's mode)."""
 
     def __init__(self, n: int, p: int, x0: int | None = None):
         self.n, self.p, self.x0 = n, p, x0
@@ -1966,7 +1988,7 @@ def start_mini_cpu():
 def finish_mini_cpu(child) -> dict:
     out, err = child.communicate(timeout=600)
     if child.returncode != 0:
-        raise AssertionError(f"the CPU Mini proof failed: {err[-3000:]}")
+        raise AssertionError(f"a Mini proof child failed: {err[-3000:]}")
     return json.loads(out.strip().splitlines()[-1])
 
 
@@ -2488,6 +2510,436 @@ def phase_asvc(card: str, log2: int = ASVC_LOG2) -> dict:
             "profile": prof}
 
 
+# ------------------------------------------------------------------ Spartan
+# (label, curve, scheme, log2 constraints, contract verifiers). Each run is
+# a square chain whose witness count equals its constraint count. (a) the
+# NIZK over BN254 at 2^20: its witness commitment is 1024 rows of 1024
+# scalars on the RCB engine, its sumcheck tables 2^20 and 2^21 rows; (b)
+# the NIZK over curve25519 at 2^19, the least whose commitment rows (1024
+# scalars) reach FIXED_BASE_MSM_MIN, on the Ristretto group; (c) the SNARK
+# over BN254 at 2^16, the least whose SPARK encoding (15 lists of 2^16
+# entries, padded to 2^20) commits in rows of 1024 on the device; its
+# setup's 786 432 generators are fixed-base MSMs on the card
+# (`generator_multiples`). A run with contract verifiers verifies through
+# them (OK, then ERR_VERIFY on a changed public input): they decode the
+# cells, hash the R1CS and run the verifier.
+SPARTAN_RUNS = (
+    ("a", "bn254", "nizk", 20, True),
+    ("b", "curve25519", "nizk", 19, False),
+    ("c", "bn254", "snark", 16, True),
+)
+SPARTAN_KERNELS = ("mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
+                   "rcb_add", "rcb_fixed_base")  # K1-K5 on the RCB engine's path, K6 the generators
+
+
+def spartan_curve(name: str):
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.host.ristretto import Curve25519
+
+    return Curve25519() if name == "curve25519" else get_curve(name)
+
+
+@contextlib.contextmanager
+def spartan_counted():
+    """Counts, while open, where Spartan's MSMs over a generator list and
+    its sumchecks ran, as the launches show. A call of
+    `msm_over_fixed_base_many` (`msm_over_fixed_base` is one row of it)
+    counts one device call, and its rows on the device, when the device
+    group's `msm_many` ran them and launched kernels; its other rows count
+    as host MSMs. A sumcheck (NIZK phases one and two, SNARK's cubic)
+    counts on the device when a `DeviceSumcheck` round method ran in it and
+    launched kernels (`sumcheck_device_rounds` counts those rounds), else
+    on the host. `generators` counts the points `generator_multiples`
+    made, `generators_device` those a launching `fixed_base_msm` made.
+    Yields the dict of counts."""
+    from ckb_zkp_tpu_torch.ops import cuda_build, msm
+    from ckb_zkp_tpu_torch.ops.sumcheck import DeviceSumcheck
+    from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
+
+    n = dict.fromkeys(("msm_device", "msm_device_rows", "msm_host", "sumcheck_device",
+                       "sumcheck_device_rounds", "sumcheck_host", "generators",
+                       "generators_device"), 0)
+    G = msm.DeviceCurveGroup
+    rounds = ("cubic_round", "quad_round", "cubic3_round_many")
+    sites = [(msm, "msm_over_fixed_base_many"), (msm, "generator_multiples"),
+             (G, "msm_many"), (G, "fixed_base_msm"),
+             *((DeviceSumcheck, r) for r in rounds),
+             (nizk, "sum_check_phase_one"), (nizk, "sum_check_phase_two"),
+             (snark, "sum_check_cubic_prover")]
+    saved = {name: getattr(owner, name) for owner, name in sites}
+    live = {"rows": 0, "rounds": 0}
+
+    def launches() -> int:
+        return sum(cuda_build.COUNTS.values())
+
+    def many(curve, base, rows, *a, **kw):
+        r0 = live["rows"]
+        out = saved["msm_over_fixed_base_many"](curve, base, rows, *a, **kw)
+        dev = live["rows"] - r0
+        n["msm_device"] += dev > 0
+        n["msm_device_rows"] += dev
+        n["msm_host"] += len(rows) - dev
+        return out
+
+    def generators(curve, scalars, *a, **kw):
+        n["generators"] += len(scalars)
+        return saved["generator_multiples"](curve, scalars, *a, **kw)
+
+    def msm_many(self, jobs):
+        k = launches()
+        out = saved["msm_many"](self, jobs)
+        live["rows"] += len(jobs) if launches() > k else 0
+        return out
+
+    def fixed_base_msm(self, table, scalars, *a, **kw):
+        k = launches()
+        out = saved["fixed_base_msm"](self, table, scalars, *a, **kw)
+        n["generators_device"] += scalars.shape[0] if launches() > k else 0
+        return out
+
+    def round_method(name):
+        def run(self, *a, **kw):
+            k = launches()
+            out = saved[name](self, *a, **kw)
+            live["rounds"] += launches() > k
+            return out
+        return run
+
+    def sumcheck(name):
+        def run(*a, **kw):
+            r0 = live["rounds"]
+            out = saved[name](*a, **kw)
+            dev = live["rounds"] - r0
+            n["sumcheck_device"] += dev > 0
+            n["sumcheck_device_rounds"] += dev
+            n["sumcheck_host"] += dev == 0
+            return out
+        return run
+
+    wrapped = {"msm_over_fixed_base_many": many, "generator_multiples": generators,
+               "msm_many": msm_many, "fixed_base_msm": fixed_base_msm,
+               **{r: round_method(r) for r in rounds},
+               **{name: sumcheck(name) for name in ("sum_check_phase_one",
+                                                    "sum_check_phase_two",
+                                                    "sum_check_cubic_prover")}}
+    for owner, name in sites:
+        setattr(owner, name, wrapped[name])
+    try:
+        yield n
+    finally:
+        for owner, name in sites:
+            setattr(owner, name, saved[name])
+
+
+@contextlib.contextmanager
+def k1_by_modulus():
+    """K1 launches tallied by the field's name while open (the field's
+    `mont_mul` calls, each a launch on a CUDA tensor: `cuda_build.COUNTS`
+    before and after)."""
+    from ckb_zkp_tpu_torch.ops import cuda_build, field
+
+    tally: dict = {}
+    real = field.mont_mul
+
+    def counted(df, a, b):
+        k = cuda_build.COUNTS["mont_mul"]
+        out = real(df, a, b)
+        tally[df.spec.name] = tally.get(df.spec.name, 0) + cuda_build.COUNTS["mont_mul"] - k
+        return out
+
+    field.mont_mul = counted
+    try:
+        yield tally
+    finally:
+        field.mont_mul = real
+
+
+def spartan_mini_proofs(device: str) -> dict:
+    """The Mini circuit's NIZK (`random.Random(55)`) and SNARK
+    (`random.Random(99)`) proofs on BN254 and curve25519, as
+    `tests/test_spartan.py` seeds them, on `device`, with
+    FIXED_BASE_MSM_MIN and DEVICE_SUMCHECK_MIN patched to 2 so that every
+    commitment of two or more scalars and every sumcheck runs the device
+    path; each verified and [11] refused. Returns the proofs' ark bytes
+    (hex)."""
+    from ckb_zkp_tpu_torch.circuits import Mini
+    from ckb_zkp_tpu_torch.ops import msm, sumcheck
+    from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import ark_encode
+
+    saved = (msm.FIXED_BASE_MSM_MIN, sumcheck.DEVICE_SUMCHECK_MIN)
+    msm.FIXED_BASE_MSM_MIN = sumcheck.DEVICE_SUMCHECK_MIN = 2
+    out = {}
+    try:
+        for name in ("bn254", "curve25519"):
+            curve = spartan_curve(name)
+            rng = random.Random(55)
+            r1cs = nizk.generate_r1cs(curve, Mini.power_off())
+            params = nizk.generate_setup_parameters(curve, rng, r1cs.num_aux, r1cs.num_inputs)
+            h = (r1cs.r1cs_to_hash(), nizk.params_to_hash(curve, params))
+            proof = nizk.create_nizk_proof(curve, params, r1cs, Mini.power_on(2, 3, 10), *h, rng,
+                                           device)
+            verdicts = [nizk.verify_nizk_proof(curve, params, r1cs, [x], proof, *h, device)
+                        for x in (10, 11)]
+            out[f"nizk_{name}"] = ark_encode(curve, proof).hex()
+            rng = random.Random(99)
+            st = snark.generate_random_parameters(curve, Mini.power_off(), rng, device)
+            h = (st.r1cs.r1cs_to_hash(), snark.snark_params_to_hash(curve, st.params),
+                 snark.encode_to_hash(curve, st.encode_commit))
+            proof = snark.create_snark_proof(curve, st.params, st.r1cs, Mini.power_on(2, 3, 10),
+                                             st.encode, st.encode_commit, *h, rng, device)
+            verdicts += [snark.verify_snark_proof(curve, st.params, st.r1cs, [x], proof,
+                                                  st.encode_commit, *h, device) for x in (10, 11)]
+            out[f"snark_{name}"] = ark_encode(curve, proof).hex()
+            if verdicts != [True, False, True, False]:
+                raise AssertionError(f"Spartan Mini on {device} ({name}): verdicts {verdicts}")
+    finally:
+        msm.FIXED_BASE_MSM_MIN, sumcheck.DEVICE_SUMCHECK_MIN = saved
+    return out
+
+
+def start_spartan_mini(device: str):
+    """`spartan_mini_proofs` on `device` in a child process (torch on 2
+    threads): on "cpu" from the plain versions, started after the build so
+    that it runs while the earlier phases use the card; on "cuda" beside
+    the Spartan runs. `finish_mini_cpu` reads its proofs."""
+    import subprocess
+
+    code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps(chip_smoke.spartan_mini_proofs(sys.argv[2])))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, device], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def spartan_run(card: str, label: str, curve_name: str, kind: str, log_c: int,
+                contract: bool, profile: bool) -> dict:
+    """One Spartan run on the card through the entry points a user calls:
+    a square chain of 2^log_c constraints and as many witnesses; the setup
+    (NIZK:
+    `generate_r1cs` and `generate_setup_parameters`; SNARK:
+    `generate_random_parameters`, its stages timed) and the hashes; the
+    prove (its stages timed; under the profiler with `profile`); the proof
+    (and with `contract` the verifying key) through the ark-0.2 bytes and
+    back unchanged; then verification on the public input and refusal of a
+    changed one: with `contract` by the contract verifier on those cells
+    (OK and ERR_VERIFY), else by `verify_*_proof`. Counts the device and
+    host calls of `msm_over_fixed_base` and of the sumchecks, the K1-K5
+    launches and K1 by field. Returns JSON-able results."""
+    import torch
+
+    from ckb_zkp_tpu_torch import contracts
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import S, Tup, ark_decode, ark_encode
+
+    curve = spartan_curve(curve_name)
+    p = curve.fr.modulus
+    n_c = 1 << log_c
+    rng = random.Random(SEED + 23)
+    x0 = rng.randrange(2, p)
+    circuit = SquareChain(n_c, p, x0)
+    public = circuit.chain()[-1]
+    secs: dict = {}
+    setup_t: dict = {}
+    prove_t: dict = {}
+    out: dict = {}
+    prof = None
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with spartan_counted() as counts, k1_by_modulus() as k1:
+        t0 = time.perf_counter()
+        if kind == "nizk":
+            r1cs = nizk.generate_r1cs(curve, SquareChain(n_c, p))
+            setup_t["r1cs"] = time.perf_counter() - t0
+            params = nizk.generate_setup_parameters(curve, rng, r1cs.num_aux, r1cs.num_inputs,
+                                                    DEVICE)
+            setup_t["params"] = time.perf_counter() - t0 - setup_t["r1cs"]
+            vk, cls = (params, r1cs), nizk.NIZKProof
+            vk_spec = Tup(S(nizk.NizkParameters), S(nizk.R1CSInstance))
+        else:
+            st = snark.generate_random_parameters(curve, SquareChain(n_c, p), rng, DEVICE,
+                                                  setup_t)
+            r1cs, params = st.r1cs, st.params
+            vk, cls = (params, r1cs, st.encode_commit), snark.SNARKProof
+            vk_spec = Tup(S(snark.SnarkParameters), S(nizk.R1CSInstance), S(snark.EncodeCommit))
+        secs["setup"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if kind == "nizk":
+            hashes = (r1cs.r1cs_to_hash(), nizk.params_to_hash(curve, params))
+        else:
+            hashes = (r1cs.r1cs_to_hash(), snark.snark_params_to_hash(curve, params),
+                      snark.encode_to_hash(curve, st.encode_commit))
+        secs["hashes"] = time.perf_counter() - t0
+
+        def prove():
+            if kind == "nizk":
+                return nizk.create_nizk_proof(curve, params, r1cs, circuit, *hashes, rng, DEVICE,
+                                              prove_t)
+            return snark.create_snark_proof(curve, params, r1cs, circuit, st.encode,
+                                            st.encode_commit, *hashes, rng, DEVICE, prove_t)
+
+        if profile:
+            prof = profiled(lambda: out.update(proof=prove()))
+            secs["prove"] = prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            out["proof"] = prove()
+            torch.cuda.synchronize()
+            secs["prove"] = time.perf_counter() - t0
+        proof = out["proof"]
+        peak = torch.cuda.max_memory_allocated()
+        prove_counts = dict(counts)
+        t0 = time.perf_counter()
+        proof_cell = ark_encode(curve, proof)
+        vk_cell = ark_encode(curve, vk, vk_spec) if contract else b""
+        if ark_encode(curve, ark_decode(curve, proof_cell, cls)) != proof_cell or (
+                contract and ark_encode(curve, ark_decode(curve, vk_cell, vk_spec), vk_spec)
+                != vk_cell):
+            raise AssertionError(f"Spartan ({label}): the proof or the vk does not come back "
+                                 "from its bytes")
+        secs["bytes"] = time.perf_counter() - t0
+        verdicts = []
+        for x in (public, (public + 1) % p):
+            t0 = time.perf_counter()
+            if contract:
+                entry = getattr(contracts, f"universal_spartan_{kind}_verifier")
+                verdicts.append(entry(curve_name, vk_cell, proof_cell,
+                                      x.to_bytes(curve.fr.nbytes, "little"), DEVICE))
+            elif kind == "nizk":
+                verdicts.append(nizk.verify_nizk_proof(curve, params, r1cs, [x], proof, *hashes,
+                                                       DEVICE))
+            else:
+                verdicts.append(snark.verify_snark_proof(curve, params, r1cs, [x], proof,
+                                                         st.encode_commit, *hashes, DEVICE))
+            secs["verify" if x == public else "verify_changed"] = time.perf_counter() - t0
+    launches = {k: cuda_build.COUNTS[k] for k in SPARTAN_KERNELS}
+    want = [contracts.OK, contracts.ERR_VERIFY] if contract else [True, False]
+    how = "contract verifier" if contract else "verify"
+    log(f"spartan ({label}) {kind} {curve_name}, 2^{log_c} constraints and witnesses: "
+        f"seconds {json.dumps(secs)}; setup stages {json.dumps(setup_t)}; prove stages "
+        f"{json.dumps(prove_t)}; {how} on the public input and a changed one: {verdicts}; "
+        f"proof {len(proof_cell)} B, vk {len(vk_cell)} B [{card}]")
+    log(f"spartan ({label}) device and host calls (prove {json.dumps(prove_counts)}; setup to "
+        f"verify {json.dumps(counts)}); launches {json.dumps(launches)}; K1 by "
+        f"field {json.dumps(k1)}; peak device memory after the prove {peak} bytes [{card}]")
+    if profile:
+        log(f"spartan ({label}) prove, profiled: {json.dumps(prof)} [{card}]")
+    if verdicts != want:
+        raise AssertionError(f"Spartan ({label}): {how} gave {verdicts}, not {want}")
+    return {"seconds": secs, "setup_stages": setup_t, "prove_stages": prove_t,
+            "counts": dict(counts), "prove_counts": prove_counts, "launches": launches,
+            "k1": k1, "peak_bytes": peak, "profile": prof, "verdicts": verdicts}
+
+
+def start_spartan_run(card: str, label: str):
+    """`spartan_run` of SPARTAN_RUNS' `label` in a child process on the
+    card (its own CUDA context and launch counts); `finish_spartan_run`
+    relays its lines and reads its results."""
+    import subprocess
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "run = next(r for r in chip_smoke.SPARTAN_RUNS if r[0] == sys.argv[3]); "
+            "print(json.dumps(chip_smoke.spartan_run(sys.argv[2], *run, profile=False)))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, card, label], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_spartan_run(child, label: str) -> dict:
+    out, err = child.communicate(timeout=1200)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if child.returncode != 0:
+        raise AssertionError(f"Spartan run ({label}) failed: {err[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_spartan_kernels(results: dict, n: int = 1 << 20) -> None:
+    """K1 at curve25519's two moduli (Fq = 2^255 - 19, Fr = l): the edge
+    products at 2^16 (0, 1, p - 1, R mod p, `mul_edge_check`), then the
+    kernel against its plain version at n rows, its first rows 0, 1,
+    p - 1 and R mod p times p - 1 (and p - 1 + p - 1 through the plain
+    add), beside its bound. Rows "mont_mul_25519_fq" and "mont_mul_25519_fr"."""
+    import numpy as np
+    import torch
+
+    from ckb_zkp_tpu_torch.ops.field import device_field
+
+    rng = np.random.default_rng(SEED + 29)
+    curve = spartan_curve("curve25519")
+    for row, spec in (("mont_mul_25519_fq", curve.fq), ("mont_mul_25519_fr", curve.fr)):
+        df = device_field(spec, DEVICE)
+        p = spec.modulus
+        record = Recorder(results)
+        mul_edge_check(lambda name, *a, **kw: record(row, *a, **kw), rng, df, spec.name)
+        a = rand_field(rng, n, (df.L,), df)
+        b = rand_field(rng, n, (df.L,), df)
+        a[:4] = df.encode([0, 1, p - 1, df.R])
+        b[:4] = df.encode([p - 1, p - 1, p - 1, p - 1])
+        k = df.mul(a, b)
+        pl, plain_ms = timed_once(lambda: df.plain.mul(a, b))
+        torch.cuda.synchronize()
+        if df.decode(k[:4]) != [0, p - 1, 1, df.R * (p - 1) % p] or \
+                df.decode(df.add(a[2:3], a[2:3])) != [p - 2]:
+            raise AssertionError(f"mont_mul edge values wrong ({spec.name} n={n})")
+        record(row, max_abs_err(k, pl), cuda_ms(lambda: df.mul(a, b), 10), plain_ms,
+               f"{spec.name} n={n}; the Spartan runs' field",
+               (3 * n * FQ_BYTES, n * IMAD_PER_FQ_MUL))
+        del a, b, k, pl
+    torch.cuda.empty_cache()
+
+
+def phase_spartan(card: str, cpu_child) -> dict:
+    """Spartan on the card: the runs of SPARTAN_RUNS (`spartan_run`). (a)
+    runs alone, under the profiler; then (b) and (c) in child processes
+    beside each other, with the Mini proofs (thresholds at 2) in a third
+    child on the card, whose bytes must equal the CPU child's. Every run
+    must make device calls of `msm_over_fixed_base` and of the sumchecks
+    (as `spartan_counted` observes them); (a) must launch K1, K2, K5 and
+    K6 (its generators) and (b) K1 at 2^255 - 19 and at l. Returns the runs, the K1-K5
+    launches of the three runs together and (b)'s K1 launches by field."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = {"a": spartan_run(card, *SPARTAN_RUNS[0], profile=True)}
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t0
+    children = {label: start_spartan_run(card, label) for label in ("b", "c")}
+    children["mini"] = start_spartan_mini(DEVICE)
+    try:
+        for label in ("b", "c"):
+            runs[label] = finish_spartan_run(children[label], label)
+        got = finish_mini_cpu(children["mini"])
+        rest_s = time.perf_counter() - t0 - a_s
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for label in runs:
+        c = runs[label]["counts"]
+        if c["msm_device"] <= 0 or c["sumcheck_device"] <= 0:
+            raise AssertionError(f"Spartan ({label}) made no device call of "
+                                 f"msm_over_fixed_base or of a sumcheck: {c}")
+    need = {"a": [k for k in ("mont_mul", "scan_prefix_madd", "rcb_add", "rcb_fixed_base")
+                  if runs["a"]["launches"][k] <= 0],
+            "b": [k for k in ("curve25519_fq", "curve25519_fr") if runs["b"]["k1"].get(k, 0) <= 0]}
+    if need["a"] or need["b"]:
+        raise AssertionError(f"Spartan kernels not launched: {need}")
+    want = finish_mini_cpu(cpu_child)
+    if got != want:
+        raise AssertionError("the Spartan Mini proofs on the card differ from the CPU ones: "
+                             f"{[k for k in got if got[k] != want.get(k)]}")
+    log(f"spartan mini (thresholds at 2): NIZK and SNARK on bn254 and curve25519, the proof "
+        f"bytes of the card's child equal the port's CPU ones; all verify, [11] refused; "
+        f"(a) alone {a_s:.3f} s wall, then (b), (c) and the card's Mini proofs beside each "
+        f"other {rest_s:.3f} s wall [{card}]")
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in SPARTAN_KERNELS}
+    return {"runs": runs, "launches": total, "k1_25519": runs["b"]["k1"],
+            "a_s": a_s, "rest_s": rest_s}
+
+
 def phase_probes(results: dict, log2: int) -> dict:
     """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2), the
     scan probes' kernels P-tot, P-prepk, P-chain (G1, every K and block
@@ -2822,13 +3274,17 @@ def run_phases(args, children: list) -> int:
         if line.startswith("==") or any(
                 w in line for w in ("registers", "spill", "Function properties")):
             log(f"nvcc: {line.strip()}")
-    cpu_child = start_mini_cpu()  # after the build, which it would slow
+    results: dict = {}
+    cpu_child = start_mini_cpu()
     children.append(cpu_child)
 
-    results: dict = {}
     t0 = time.perf_counter()
     levels, team, fixed, loop_launches, jac_fixed, jac_shapes, jac_totals = phase_kernels(
         results, args.log2)
+    phase_spartan_kernels(results)
+    # the Spartan Mini proofs from the plain versions, after the timed kernel rows
+    spartan_child = start_spartan_mini("cpu")
+    children.append(spartan_child)
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
     log(f"fixed base (K6 at the setup's width 2^{args.log2}, {card}): {json.dumps(fixed)}")
@@ -2862,14 +3318,21 @@ def run_phases(args, children: list) -> int:
     t6 = time.perf_counter()
     asvc_run = phase_asvc(card, min(ASVC_LOG2, args.log2))
     torch.cuda.empty_cache()
-    t7 = time.perf_counter()
+    t6s = time.perf_counter()
     wide = phase_wide(results, card, args.log2)
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    spartan = phase_spartan(card, spartan_child)
+    torch.cuda.empty_cache()
+    log(f"spartan phase seconds: {json.dumps({k: r['seconds'] for k, r in spartan['runs'].items()})}"
+        f" [{card}]")
     t8 = time.perf_counter()
     probes = phase_probes(results, args.log2 + 1)
     t9 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
         f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
-        f"plonk {t6 - t5:.3f}, asvc {t7 - t6:.3f}, bls12_381 {t8 - t7:.3f}, "
+        f"plonk {t6 - t5:.3f}, asvc {t6s - t6:.3f}, bls12_381 {t7 - t6s:.3f}, "
+        f"spartan {t8 - t7:.3f}, "
         f"probes {t9 - t8:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
@@ -2891,6 +3354,8 @@ def run_phases(args, children: list) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
             | ({"marlin_launches": mar["launches"][name],
                 "plonk_launches": plonk["launches"][name]} if name in MARLIN_KERNELS else {})
+            | ({"spartan_launches": spartan["launches"][name]} if name in SPARTAN_KERNELS
+               else {})
             | ({"asvc_launches": asvc_run["fr_mont_mul"]} if name == "mont_mul" else {}))
     for row, name in WIDE_ROWS.items():
         r = results[row]
@@ -2910,6 +3375,19 @@ def run_phases(args, children: list) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
+    for row, field_name in (("mont_mul_25519_fq", "curve25519_fq"),
+                            ("mont_mul_25519_fr", "curve25519_fr")):
+        r = results[row]
+        src, replaces = KERNELS["mont_mul"]
+        launches = spartan["k1_25519"].get(field_name, 0)  # run (b)'s
+        if launches <= 0:
+            raise AssertionError(f"{row} was not launched on the curve25519 Spartan path")
+        table.append({
+            "name": row, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

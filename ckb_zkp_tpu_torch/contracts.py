@@ -1,9 +1,10 @@
 """Portable verifier entry points mirroring the on-chain contracts: their
 pairing half.
 
-Port of the reference's `contracts.py` (`:26-128`): the error codes,
-`_frs_from_cell` and the Groth16, Marlin and PLONK entry points word for
-word, routed to the port's schemes and codecs. The reference ships 10
+Port of the reference's `contracts.py` (`:26-192`): the error codes,
+`_frs_from_cell` and the Groth16, Marlin, PLONK and Spartan (NIZK and
+SNARK) entry points word for word, routed to the port's schemes and
+codecs. The reference ships 10
 no_std RISC-V contracts that load vk / proof / public-input bytes from
 transaction cell data and run the layer-3 verifier inside CKB-VM (ckb-zkp
 ckb-contracts/contracts/universal_groth16_verifier/src/entry.rs:12-42);
@@ -11,17 +12,19 @@ these entry points keep their cell-data semantics: three byte strings in,
 accept/reject out, over the same ark-0.2 wire formats
 (serialize/ark_schemes.py):
 
-- groth16 / marlin / plonk: vk cell = key bytes, proof cell = proof bytes,
-  publics = Fr bytes (plonk: Vec<Fr> with u64 length prefix, as its
-  entry.rs reads; the rest: concatenated 32/48-byte Fr words).
+- groth16 / marlin / plonk / spartan x2: vk cell = key bytes, proof cell =
+  proof bytes, publics = Fr bytes (plonk: Vec<Fr> with u64 length prefix,
+  as its entry.rs reads; the rest: concatenated 32/48-byte Fr words).
 
 Groth16's verifier is host ints only. Marlin's and PLONK's verifiers run
 their `HDomain` transforms above `HDomain.HOST_SIZE` on a device: they
-take `device` (default "cuda") and decode the verifying key onto it. The
-`except` clauses map decode and verify errors to the cell codes as the
-reference does; an error of a CUDA launch (a RuntimeError) is not a
-verdict and propagates. The Spartan, Bulletproofs, Libra and Hyrax entry
-points (`:131-281`) come with their schemes.
+take `device` (default "cuda") and decode the verifying key onto it.
+Spartan's verifiers take `device` for their Pedersen commitments of
+FIXED_BASE_MSM_MIN scalars or more and for the square roots of the key's
+long generator lists (`ark_schemes.DEVICE_DECODE_MIN`). The `except` clauses map decode and
+verify errors to the cell codes as the reference does; an error of a CUDA
+launch (a RuntimeError) is not a verdict and propagates. The Bulletproofs,
+Libra and Hyrax entry points (`:195-281`) come with their schemes.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import dataclasses
 from .host.pairing import get_curve
 from .schemes import groth16
 from .schemes.groth16 import serialize as g16ser
-from .serialize.ark_schemes import FR, Vec, ark_decode
+from .serialize.ark_schemes import FR, S, Tup, Vec, ark_decode
 
 # error codes mirror the contracts' i8 Error enums (entry.rs / error.rs)
 OK = 0
@@ -119,6 +122,74 @@ def universal_plonk_verifier(
         return ERR_ENCODING
     try:
         ok = Plonk.verify(curve, vk, list(publics), proof)
+    except (ValueError, AssertionError, ZeroDivisionError, IndexError):
+        return ERR_VERIFY
+    return OK if ok else ERR_VERIFY
+
+
+def universal_spartan_nizk_verifier(
+    curve_name: str, vk_cell: bytes, proof_cell: bytes, publics_cell: bytes,
+    device="cuda",
+) -> int:
+    """universal_spartan_nizk_verifier/src/entry.rs: vk cell = ark VerifyKey
+    {params, r1cs} (lib.rs:163-166), proof cell = ark NIZKProof."""
+    curve = get_curve(curve_name)
+    from .schemes.spartan import nizk
+    from .schemes.spartan.common import NizkParameters
+
+    try:
+        params, r1cs = ark_decode(
+            curve, vk_cell, Tup(S(NizkParameters), S(nizk.R1CSInstance)), device
+        )
+        proof = ark_decode(curve, proof_cell, nizk.NIZKProof, device)
+        publics = _frs_from_cell(curve, publics_cell)
+        if publics is None:
+            return ERR_ENCODING
+    except (ValueError, EOFError, IndexError, TypeError):
+        return ERR_ENCODING
+    try:
+        ok = nizk.verify_nizk_proof(
+            curve, params, r1cs, publics, proof,
+            r1cs.r1cs_to_hash(), nizk.params_to_hash(curve, params), device=device,
+        )
+    except (ValueError, AssertionError, ZeroDivisionError, IndexError):
+        return ERR_VERIFY
+    return OK if ok else ERR_VERIFY
+
+
+def universal_spartan_snark_verifier(
+    curve_name: str, vk_cell: bytes, proof_cell: bytes, publics_cell: bytes,
+    device="cuda",
+) -> int:
+    """universal_spartan_snark_verifier: vk cell = ark VerifyKey {params,
+    r1cs, encode_comm} (lib.rs:59-63), proof cell = ark SNARKProof."""
+    curve = get_curve(curve_name)
+    from .schemes.spartan import nizk, snark
+
+    try:
+        params, r1cs, encode_commit = ark_decode(
+            curve, vk_cell,
+            Tup(
+                S(snark.SnarkParameters),
+                S(nizk.R1CSInstance),
+                S(snark.EncodeCommit),
+            ),
+            device,
+        )
+        proof = ark_decode(curve, proof_cell, snark.SNARKProof, device)
+        publics = _frs_from_cell(curve, publics_cell)
+        if publics is None:
+            return ERR_ENCODING
+    except (ValueError, EOFError, IndexError, TypeError):
+        return ERR_ENCODING
+    try:
+        ok = snark.verify_snark_proof(
+            curve, params, r1cs, publics, proof, encode_commit,
+            r1cs.r1cs_to_hash(),
+            snark.snark_params_to_hash(curve, params),
+            snark.encode_to_hash(curve, encode_commit),
+            device=device,
+        )
     except (ValueError, AssertionError, ZeroDivisionError, IndexError):
         return ERR_VERIFY
     return OK if ok else ERR_VERIFY

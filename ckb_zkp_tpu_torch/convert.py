@@ -6,15 +6,22 @@ port's: the same layouts as int32 tensors on `device`, and host points
 rebuilt as the port's own classes (`host/curves.py`). Both provers then
 compute from the same key. `srs_from_reference` does the same for a KZG10
 `UniversalParams` (Marlin's and PLONK's SRS), `asvc_params_from_reference`
-for aSVC's `Parameters`.
+for aSVC's `Parameters`. `spartan_nizk_params_from_reference` and
+`spartan_snark_setup_from_reference` carry Spartan's parameters, R1CS
+instance and SPARK encoding across field by field (host ints and points,
+no device), so that a port proof over them can be compared with the
+reference's.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from .host.curves import AffinePoint
 from .host.pairing import get_curve
+from .host.ristretto import Curve25519, RistrettoPoint
 from .ops.limbs import to_torch
 from .schemes import asvc, kzg10
 from .schemes.groth16.types import Parameters, VerifyKey
@@ -92,3 +99,42 @@ def asvc_params_from_reference(params, device="cuda") -> asvc.Parameters:
         n=params.n,
         omega=params.omega,
     )
+
+
+def _port_curve(curve):
+    return Curve25519() if curve.name == "curve25519" else get_curve(curve.name)
+
+
+def _spartan_value(v):
+    """A reference Spartan value -> the port's: each dataclass as the port's
+    class of the same name, field by field; points as the port's point
+    classes; curves as the port's registry entry; lists, tuples and ints
+    as they are."""
+    from .schemes.spartan import common, nizk, snark
+
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        name = type(v).__name__
+        if name == "RistrettoPoint":
+            return RistrettoPoint(v.X, v.Y, v.Z, v.T)
+        if name in ("PairingCurve", "Curve25519"):
+            return _port_curve(v)
+        cls = next(getattr(m, name) for m in (common, nizk, snark) if hasattr(m, name))
+        return cls(**{f.name: _spartan_value(getattr(v, f.name))
+                      for f in dataclasses.fields(v)})
+    if type(v).__name__ == "AffinePoint":
+        return point_from_reference(v)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_spartan_value(x) for x in v)
+    return v
+
+
+def spartan_nizk_params_from_reference(params, r1cs):
+    """The reference's Spartan `NizkParameters` and `R1CSInstance` -> the
+    port's (params, r1cs)."""
+    return _spartan_value(params), _spartan_value(r1cs)
+
+
+def spartan_snark_setup_from_reference(setup):
+    """The reference's Spartan `SnarkSetup` (params, r1cs, encode,
+    encode_commit) -> the port's."""
+    return _spartan_value(setup)

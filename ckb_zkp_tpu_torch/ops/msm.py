@@ -28,13 +28,27 @@ order, never copied in it): K9b block totals, a K9c level,
 a Hillis-Steele top and K8 combines, and the window folds (the Horner
 sum over the window sums, `_window_sum`'s (2^c - 1) E_last) are one K8
 chain launch each; the fixed-base MSM (`_fixed_base_impl`, `:883-899`,
-which runs K9a once a window) is one K9a fixed-base launch here. The port
-always takes the reference's accelerator branch of that engine (affine
-leaves, block totals, the K9a fixed-base), so it keeps no
-`_affine_leaves` flag. Both
-engines give the same affine points; every pairing curve of the repo has
-a = 0, so the RCB engine is the default and the Jacobian one runs where a
-caller sets `_use_rcb = False`.
+which runs K9a once a window) is one K9a fixed-base launch here. For
+the Weierstrass groups the port always takes the reference's accelerator
+branch of that engine (affine leaves, block totals, the K9a fixed-base).
+Both engines give the same affine points; every pairing curve of the
+repo has a = 0, so the RCB engine is the default and the Jacobian one
+runs where a caller sets `_use_rcb = False`.
+
+A group that brings its own point operations (`p_add`, `p_double`,
+`p_neg`, `p_identity`; the Ristretto group of `ristretto_device.py`)
+clears `_affine_leaves` and runs the reference's generic branch of
+`_window_sum` (`:594-636`, its `else` at `:623-625`): the points gathered
+in digit order, their prefixes at the bucket ends by `prefix_at_indices`,
+the sum of the E_b, c doublings of E_last, then the fold of `_msm_impl`
+(`:840-848`). As in the Jacobian branch, the windows run in batches, and
+the sum of the E_b is a halving tree (the same point as the reference's
+Hillis-Steele scan, with fewer adds). `msm_many` runs the MSMs of such a
+group that share one point list as one batch of window rows and one fold.
+
+`msm_over_fixed_base` (`:1104-1144`) is the MSM over a prefix of a
+generator list, whose device encoding is cached per list: the Pedersen
+commitments of the discrete-log schemes.
 """
 
 from __future__ import annotations
@@ -189,6 +203,10 @@ def _scale_pow2_minus1(rg, p, c: int):
 class DeviceCurveGroup:
     """Torch view of one curve group (G1 over Fq, or G2 over Fq2)."""
 
+    # the Jacobian engine's affine leaves and formulas; a subclass with its
+    # own point operations (extended Edwards) clears it for the generic branch
+    _affine_leaves = True
+
     def __init__(self, curve, group: str, device="cuda"):
         self.curve = curve
         self.group = group
@@ -214,8 +232,9 @@ class DeviceCurveGroup:
     def _check_jacobian(self):
         """The Jacobian formulas are a = 0 formulas; the reference sends an
         a != 0 group to them and doubles it wrongly (no a Z^4 term,
-        `ops/ec.py:100-117`). The port refuses such a group."""
-        if self.host_group.a not in (0, (0, 0)):
+        `ops/ec.py:100-117`). The port refuses such a group. A group with
+        its own point operations (`_affine_leaves` False) does not use them."""
+        if self._affine_leaves and self.host_group.a not in (0, (0, 0)):
             raise ValueError(
                 f"{self.curve.name} {self.group}: the Jacobian engine's "
                 f"formulas need a = 0, the group has a = {self.host_group.a}")
@@ -309,6 +328,8 @@ class DeviceCurveGroup:
         """Jacobian point sum_i s_i P_i. P affine-encoded (Z in {0, one});
         scalars (N, L) canonical. Points padded wider than the scalars (the
         reference's pow2-padded G2 query arrays) get zero-extended scalars."""
+        if not self._affine_leaves:
+            return self._msm_many_generic([(P, scalars)])[0]
         P, scalars = self._msm_operands(P, scalars)
         if self._use_rcb:
             return tuple(c[0] for c in self._msm_rcb([(P, scalars)]))
@@ -329,9 +350,13 @@ class DeviceCurveGroup:
         K2-K5 launches (each padded to the batch's longest with flagged
         leaves and zero scalars), and one window fold of 272-288 K5
         launches serves them all, where each MSM alone pays its own. The
-        Jacobian engine runs them one by one."""
+        Jacobian engine runs them one by one. A group with its own point
+        operations runs the MSMs over one point list (the same tensors)
+        as one `_msm_generic`: one batch of window rows, one fold."""
         if not self._use_rcb:
-            return [self.msm(P, s) for P, s in jobs]
+            if self._affine_leaves:
+                return [self.msm(P, s) for P, s in jobs]
+            return self._msm_many_generic(jobs)
         jobs = [self._msm_operands(P, s) for P, s in jobs]
         groups: list = []  # (window bits, shortest length, job indices)
         for i in sorted(range(len(jobs)), key=lambda i: jobs[i][1].shape[0]):
@@ -570,6 +595,73 @@ class DeviceCurveGroup:
         out = self.p_add(before, part2)
         return point_select(self.cf, q >= 0, out, self.p_identity(q.shape))
 
+    # ------------- the generic branch (a group's own point operations) -------------
+    def _msm_many_generic(self, jobs) -> list:
+        """`msm_many` for a group with its own point operations: the jobs
+        over one point list (the same tensors, the same length) share one
+        `_msm_generic` call."""
+        out: list = [None] * len(jobs)
+        groups: dict = {}
+        for i, (P, s) in enumerate(jobs):
+            P, s = self._msm_operands(P, s)
+            group = groups.setdefault((id(P[0]), P[0].shape[0]), (P, [], []))
+            group[1].append(i)
+            group[2].append(s)
+        for P, idx, rows in groups.values():
+            n_pts = P[0].shape[0]
+            np2 = max(8, 1 << (n_pts - 1).bit_length())
+            sc = torch.stack(rows)
+            if np2 != n_pts:
+                P = tuple(torch.cat([c, i]) for c, i in zip(P, self.p_identity((np2 - n_pts,))))
+                sc = torch.cat([sc, sc.new_zeros((sc.shape[0], np2 - n_pts, sc.shape[2]))], 1)
+            S = self._msm_generic(P, sc)
+            for r, j in enumerate(idx):
+                out[j] = tuple(c[r] for c in S)
+        return out
+
+    def _msm_generic(self, P, scalars):
+        """(m,) points sum_i s_ji P_i for m scalar rows (m, n, L) over one
+        list of n points (reference `_msm_impl`, `ops/msm.py:830-848`, with
+        `_affine_leaves` False): the c-bit windows of every row, in batches
+        of up to _WINDOW_BATCH_POINTS gathered points, then the fold
+        sum_w 2^(cw) S_w by c doublings and an add a window."""
+        m, n = scalars.shape[:2]
+        W = self.nwindows
+        bitpos = torch.arange(W, device=scalars.device) * self.c
+        limbs = scalars.to(torch.int64)[:, :, bitpos // BASE_BITS]  # (m, n, W)
+        digits = ((limbs >> (bitpos % BASE_BITS)) & (self.nb - 1)).transpose(1, 2)
+        digits = digits.reshape(m * W, n)
+        batch = max(1, min(m * W, _WINDOW_BATCH_POINTS // n))
+        parts = [self._window_sums_generic(P, digits[r0 : r0 + batch])
+                 for r0 in range(0, m * W, batch)]
+        S = tuple(torch.cat(cs).reshape(m, W, *cs[0].shape[1:]) for cs in zip(*parts))
+        acc = self.p_identity((m,))
+        for i in range(W):
+            for _ in range(self.c):
+                acc = self.p_double(acc)
+            acc = self.p_add(acc, tuple(s[:, W - 1 - i] for s in S))
+        return acc
+
+    def _window_sums_generic(self, P, digits):
+        """sum_b b * B_b for each row of (k, n) digits over the points P
+        (reference `_window_sum`'s generic branch, `ops/msm.py:617-636`):
+        the points in digit order, the inclusive prefixes E_b at the
+        bucket ends, and (nb - 1) E_last - sum_{b < nb-1} E_b, where
+        (nb - 1) E_last = 2^c E_last - E_last."""
+        nb = self.nb
+        order = torch.sort(digits, dim=1).indices
+        ar = torch.arange(nb, device=digits.device).expand(digits.shape[0], nb)
+        cnt = torch.searchsorted(torch.gather(digits, 1, order), ar.contiguous(), right=True)
+        E = prefix_at_indices(self.p_add, tuple(c[order] for c in P), self.p_identity(),
+                              cnt - 1)
+        e_last = tuple(e[:, nb - 1] for e in E)
+        sum_e = self._sum_dim1(tuple(e[:, : nb - 1] for e in E))
+        t = e_last
+        for _ in range(self.c):
+            t = self.p_double(t)
+        acc = self.p_add(t, self.p_neg(e_last))
+        return self.p_add(acc, self.p_neg(sum_e))
+
     # ------------- fixed-base (setup path) -------------
     def fixed_base_table(self, base_affine):
         """Window table T[w, d] = d * 2^(cw) * base, affine-encoded, built on
@@ -675,3 +767,81 @@ def device_group(curve, group: str, device="cuda") -> DeviceCurveGroup:
     if g is None:
         g = _GROUPS[key] = DeviceCurveGroup(curve, group, dev)
     return g
+
+
+# ---- the MSM over a fixed generator list, its device encoding cached ----
+# Pedersen commitments MSM over the same generator list again and again
+# (Spartan's packing commitments; Hyrax's, Libra's and Bulletproofs' when
+# their slices come). Reference `ops/msm.py:1097-1144`.
+FIXED_BASE_MSM_MIN = 1 << 10
+_fixed_base_cache: dict = {}
+
+
+def _fixed_base_group(curve, device):
+    if getattr(curve, "name", "") == "curve25519":
+        from .ristretto_device import device_ristretto_group
+
+        return device_ristretto_group(device=device)
+    return device_group(curve, "g1", device)
+
+
+def _encoded_list(dg, base_points, cache: bool):
+    """The device encoding of `base_points`, memoized per list and device
+    with `cache` (the reference's guard `ent[0] is base_points`: a freed
+    list's id can come back)."""
+    if not cache:
+        return dg.encode_points(base_points)
+    key = (id(base_points), str(dg.device))
+    ent = _fixed_base_cache.get(key)
+    if ent is None or ent[0] is not base_points:
+        ent = _fixed_base_cache[key] = (base_points, dg.encode_points(base_points))
+    return ent[1]
+
+
+def msm_over_fixed_base(curve, base_points: list, scalars: list, cache: bool = True,
+                        device="cuda"):
+    """sum_i scalars[i] * base_points[i] over a prefix of a generator list
+    (reference `ops/msm.py:1104-1144`): `msm_over_fixed_base_many` of one
+    row."""
+    return msm_over_fixed_base_many(curve, base_points, [scalars], cache, device)[0]
+
+
+def msm_over_fixed_base_many(curve, base_points: list, rows: list, cache: bool = True,
+                             device="cuda") -> list:
+    """[sum_i s[i] * base_points[i] for s in rows] over prefixes of one
+    generator list. A row below FIXED_BASE_MSM_MIN scalars, every row on an
+    Edwards curve, and every row where the rows differ in length, runs the
+    host Pippenger (the reference's gate, `ops/msm.py:1104-1144`); else the
+    rows run as one `msm_many` over the list's cached encoding on `device`
+    (one batch of window rows and one fold, where each MSM alone pays its
+    own): the Ristretto group for curve25519, G1 (`device_group`) for
+    every other curve. cache=False for one-shot lists, whose encodings are
+    not kept."""
+    if not rows or len(rows[0]) < FIXED_BASE_MSM_MIN or getattr(curve, "is_edwards", False) \
+            or any(len(s) != len(rows[0]) for s in rows):
+        return [curve.g1.msm(base_points[: len(s)], s) for s in rows]
+    dg = _fixed_base_group(curve, device)
+    P = tuple(c[: len(rows[0])] for c in _encoded_list(dg, base_points, cache))
+    return [dg.decode_point(S) for S in dg.msm_many([(P, dg.encode_scalars(s)) for s in rows])]
+
+
+_GENERATOR_CHUNK = 1 << 18  # scalars a fixed-base launch takes in `generator_multiples`
+
+
+def generator_multiples(curve, scalars: list, device="cuda") -> list:
+    """[s * curve.g1_gen for s in scalars] as host points (Spartan's random
+    generators). From FIXED_BASE_MSM_MIN scalars up on a short-Weierstrass
+    curve, the fixed-base MSM of G1 on `device` (`fixed_base_msm`: K6 on
+    the RCB engine) in chunks of _GENERATOR_CHUNK, each normalized by one
+    batch inversion on the device; below, and for curve25519 and Edwards
+    curves, the host's `mul` a scalar, as the reference draws them."""
+    if len(scalars) < FIXED_BASE_MSM_MIN or getattr(curve, "is_edwards", False) \
+            or getattr(curve, "name", "") == "curve25519":
+        return [curve.g1.mul(curve.g1_gen, s) for s in scalars]
+    dg = device_group(curve, "g1", device)
+    fb = dg.fixed_base(curve.g1_gen)
+    out: list = []
+    for i in range(0, len(scalars), _GENERATOR_CHUNK):
+        part = scalars[i : i + _GENERATOR_CHUNK]
+        out += dg.decode_points(dg.fixed_base_msm(fb, dg.encode_scalars(part)))
+    return out

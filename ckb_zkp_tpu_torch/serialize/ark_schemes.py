@@ -5,20 +5,29 @@ Port of the reference's `serialize/ark_schemes.py`. The codec machinery
 the reference's word for word, with two changes:
 
 - `_schemas()` registers only the schemes the port has: KZG10's opening
-  proof and Marlin's commitments, index info, keys and proof (PLONK's
-  bytes, `schemes/plonk/serialize.py`, are built from these). Each
-  discrete-log scheme (Spartan, Bulletproofs, Hyrax, Libra) adds its block
-  when its slice comes, and with it the Ristretto and Edwards points
-  behind `PT`: here `PT` is the pairing curve's G1.
+  proof, Marlin's commitments, index info, keys and proof (PLONK's bytes,
+  `schemes/plonk/serialize.py`, are built from these) and Spartan's
+  parameters, R1CS instance, SPARK encoding and proofs (NIZK and SNARK).
+  Each other discrete-log scheme (Bulletproofs, Hyrax, Libra) adds its
+  block when its slice comes. `PT` is the pairing curve's G1, or for
+  curve25519 the 32-byte Ristretto encoding; the Edwards curves' points
+  come with the curve registry.
 - The port's Marlin keys carry a device: decoding gives them the codec's
   `device` (default "cuda"). The device is never written into the bytes.
+- Two fast paths with the generic walk's bytes and errors, for Spartan's
+  keys at 2^16-2^20 constraints: the R1CS matrices (`MATRIX`) in one pass
+  over the bytes, and a vector of DEVICE_DECODE_MIN or more compressed G1
+  points with its square roots as one batch on the codec's `device`
+  (`_g1_read_many`), where `G1Codec.read` pays two Python-int
+  exponentiations a point.
 
 The primitive encodings (ark-serialize 0.2):
 
 - `Fp256/Fp384`: canonical (non-Montgomery) integer, little-endian, fixed
   width (32/48 bytes), empty flags in the top bits;
 - `G1Affine/G2Affine`: compressed point with y-sign / infinity flags in the
-  top byte (serialize/ark.py G1Codec/G2Codec);
+  top byte (serialize/ark.py G1Codec/G2Codec); `Curve25519Point`: 32-byte
+  ristretto encoding (ckb-zkp curve25519/src/group.rs:293-338);
 - `Vec<T>`: u64 LE length + items; `DensePolynomial<F>` = its `coeffs` Vec;
 - `usize`: u64 LE; `bool`: 1 byte; `Option<T>`: bool byte + payload if Some;
 - tuples: components in order.
@@ -33,7 +42,9 @@ from __future__ import annotations
 import functools
 import io
 
-from .ark import FieldCodec, G1Codec, G2Codec, read_u64, write_u64
+from ..host.curves import AffinePoint
+from .ark import (FLAG_INFINITY, FLAG_POSITIVE_Y, FieldCodec, G1Codec, G2Codec, read_u64,
+                  write_u64)
 
 # ---------------------------------------------------------------- spec language
 FR = "fr"
@@ -49,6 +60,11 @@ POLY = ("vec", FR)  # DensePolynomial<F> == coeffs: Vec<F> (ascending)
 ENTRY = ("entry",)
 # BTreeMap<(u32, u32), Fr>: u64 len + sorted ((u32, u32), Fr) pairs
 U32MAP_FR = ("u32map", FR)
+# an R1CS matrix, Vec<Vec<(Fr, Index)>> (spartan/src/r1cs.rs)
+MATRIX = ("vec", ("vec", ENTRY))
+# compressed G1 points in a vector from which their square roots run on the
+# codec's device as one batch
+DEVICE_DECODE_MIN = 1 << 10
 
 
 def Vec(spec):
@@ -75,27 +91,123 @@ TDICT = ("tdict", (2, 3, 5, 6, 7, 8, 9, 10))
 class ArkSchemeCodec:
     """Encode/decode registered scheme structs in ark-0.2 wire format.
 
-    `curve` is a PairingCurve (PT == G1, compressed-with-flags); `device`
-    is where decoded keys that hold one (Marlin's) run.
+    `curve` is a PairingCurve (PT == G1, compressed-with-flags) or the
+    Curve25519 registry entry (PT == 32-byte ristretto); `device` is where
+    decoded keys that hold one (Marlin's) run.
     """
 
     def __init__(self, curve, device="cuda"):
         self.curve = curve
         self.device = device
         self.fr = FieldCodec(curve.fr)
-        self.g1 = G1Codec(curve)
-        self.g2 = G2Codec(curve)
+        self.is_ristretto = getattr(curve, "name", "") == "curve25519"
+        if not self.is_ristretto:
+            self.g1 = G1Codec(curve)
+            self.g2 = G2Codec(curve)
 
     # ------------- points -------------
     def _pt_bytes(self, v) -> bytes:
+        if self.is_ristretto:
+            return v.encode()
         return self.g1.to_bytes(v)
 
     def _pt_read(self, buf: io.BytesIO):
+        if self.is_ristretto:
+            from ..host.ristretto import RistrettoPoint
+
+            raw = buf.read(32)
+            if len(raw) != 32:
+                raise ValueError("truncated ristretto point")
+            pt = RistrettoPoint.decode(raw)
+            if pt is None:
+                raise ValueError("invalid ristretto encoding")
+            return pt
         return self.g1.read(buf)
 
     # ------------- generic walk -------------
+    def _matrix_bytes(self, m) -> bytes:
+        """`MATRIX`'s bytes in one pass (the walk's: row lengths, then each
+        entry's coefficient, Index tag and index)."""
+        p, nb = self.fr.spec.modulus, self.fr.nbytes
+        memo: dict = {}
+        parts = [len(m).to_bytes(8, "little")]
+        put = parts.append
+        for row in m:
+            put(len(row).to_bytes(8, "little"))
+            for coeff, kind, idx in row:
+                c = memo.get(coeff)
+                if c is None:
+                    c = memo[coeff] = (coeff % p).to_bytes(nb, "little")
+                put(c)
+                put(b"\x00" if kind == "I" else b"\x01")
+                put(int(idx).to_bytes(8, "little"))
+        return b"".join(parts)
+
+    def _matrix_read(self, buf: io.BytesIO):
+        """`MATRIX` from the buffer in one pass over its bytes, with the
+        walk's results: a short u64 reads as what is there, a short or
+        non-canonical coefficient and a bad tag raise ValueError."""
+        data = buf.getvalue()
+        end, o = len(data), buf.tell()
+        p, nb = self.fr.spec.modulus, self.fr.nbytes
+        frm = int.from_bytes
+        n = frm(data[o : o + 8], "little")
+        o = min(o + 8, end)
+        rows = []
+        for _ in range(n):
+            k = frm(data[o : o + 8], "little")
+            o = min(o + 8, end)
+            row = []
+            for _ in range(k):
+                if o + nb > end:
+                    raise ValueError("truncated field element")
+                coeff = frm(data[o : o + nb], "little")
+                if coeff >= p:
+                    raise ValueError("non-canonical field element")
+                tag = data[o + nb] if o + nb < end else None
+                if tag != 0 and tag != 1:
+                    raise ValueError("invalid Index tag")
+                o += nb + 1
+                row.append((coeff, "A" if tag else "I", frm(data[o : o + 8], "little")))
+                o = min(o + 8, end)
+            rows.append(row)
+        buf.seek(o)
+        return rows
+
+    def _g1_read_many(self, buf: io.BytesIO, n: int) -> list:
+        """n compressed G1 points, as `G1Codec.read` gives them: the
+        coordinates and flags read on the host, y = rhs^((q + 1) / 4) for
+        rhs = x^3 + b as one batch on `self.device` (K1 through
+        `DeviceField.pow_fixed`; q = 3 mod 4 on the pairing curves), an x
+        whose rhs has no root raising ValueError."""
+        from ..ops.field import device_field
+
+        q = self.curve.fq.modulus
+        coords = [self.g1._coord_read(buf) for _ in range(n)]
+        fin = [x for x, flags in coords if not flags & FLAG_INFINITY]
+        ys = rs = []
+        if fin:
+            df = device_field(self.curve.fq, self.device)
+            X = df.encode(fin)
+            rhs = df.add(df.mul(df.sqr(X), X), df.const(self.curve.g1.b, (len(fin),)))
+            ys, rs = df.decode(df.pow_fixed(rhs, (q + 1) // 4)), df.decode(rhs)
+        out, it = [], iter(zip(ys, rs))
+        for x, flags in coords:
+            if flags & FLAG_INFINITY:
+                out.append(self.g1.group.infinity)
+                continue
+            y, r = next(it)
+            if y * y % q != r:
+                raise ValueError("x not on curve")
+            if (y > q - y) != bool(flags & FLAG_POSITIVE_Y):
+                y = -y % q
+            out.append(AffinePoint(x, y))
+        return out
+
     def _write(self, buf: io.BytesIO, spec, v) -> None:
-        if spec == FR:
+        if spec == MATRIX:
+            buf.write(self._matrix_bytes(v))
+        elif spec == FR:
             buf.write(self.fr.to_bytes(v))
         elif spec == PT:
             buf.write(self._pt_bytes(v))
@@ -146,6 +258,13 @@ class ArkSchemeCodec:
             raise ValueError(f"unknown spec {spec!r}")
 
     def _read(self, buf: io.BytesIO, spec):
+        if spec == MATRIX:
+            return self._matrix_read(buf)
+        if spec in (("vec", G1), ("vec", PT)) and not self.is_ristretto:
+            n = read_u64(buf)
+            if n >= DEVICE_DECODE_MIN:
+                return self._g1_read_many(buf, n)
+            return [self.g1.read(buf) for _ in range(n)]
         if spec == FR:
             return self.fr.read(buf)
         if spec == PT:
@@ -224,6 +343,9 @@ def _schemas():
     from ..schemes.marlin import ahp as ma_ahp
     from ..schemes.marlin import marlin as ma
     from ..schemes.marlin import pc as ma_pc
+    from ..schemes.spartan import common as sp_common
+    from ..schemes.spartan import nizk as sp
+    from ..schemes.spartan import snark as sp_sn
 
     curve_extra = lambda ctx: {"curve": ctx.curve}  # noqa: E731
     device_extra = lambda ctx: {"curve": ctx.curve, "device": ctx.device}  # noqa: E731
@@ -274,6 +396,232 @@ def _schemas():
             ("commitments", Vec(Vec(S(ma_pc.Commitment)))),
             ("evaluations", Vec(FR)),
             ("opening_proofs", Vec(S(kzg10.OpenProof))),
+        ],
+    )
+
+    # ---- spartan setup/verify keys (spartan/src/data_structure.rs:11-166,
+    # lib.rs:43-166, r1cs.rs:15-22, spark.rs EncodeCommit) ----
+    MC = S(sp_common.MultiCommitmentParameters)
+    PC = S(sp_common.PolyCommitmentParameters)
+    add(
+        sp_common.MultiCommitmentParameters,
+        [("n", U64), ("generators", Vec(PT)), ("h", PT)],
+    )
+    add(
+        sp_common.PolyCommitmentParameters,
+        [("n", U64), ("gen_n", MC), ("gen_1", MC)],
+    )
+    add(
+        sp_common.SumCheckCommitmentParameters,
+        [("gen_1", MC), ("gen_3", MC), ("gen_4", MC)],
+    )
+    add(
+        sp_common.R1CSSatisfiedParameters,
+        [
+            ("pc_params", PC),
+            ("sc_params", S(sp_common.SumCheckCommitmentParameters)),
+            ("n", U64),
+        ],
+    )
+    add(
+        sp_common.NizkParameters,
+        [("r1cs_satisfied_params", S(sp_common.R1CSSatisfiedParameters))],
+    )
+    add(
+        sp_sn.R1CSEvalsParameters,
+        [("ops_params", PC), ("mem_params", PC), ("derefs_params", PC)],
+    )
+    add(  # reference field order: eval params FIRST (data_structure.rs:81-84)
+        sp_sn.SnarkParameters,
+        [
+            ("r1cs_eval_params", S(sp_sn.R1CSEvalsParameters)),
+            ("r1cs_satisfied_params", S(sp_common.R1CSSatisfiedParameters)),
+        ],
+    )
+    add(
+        sp.R1CSInstance,
+        [
+            ("num_inputs", U64),
+            ("num_aux", U64),
+            ("num_constraints", U64),
+            ("a_matrix", MATRIX),
+            ("b_matrix", MATRIX),
+            ("c_matrix", MATRIX),
+        ],
+        extras=curve_extra,
+    )
+    add(
+        sp_sn.EncodeCommit,
+        [
+            ("n", U64),
+            ("m", U64),
+            ("ops_commit", Vec(PT)),
+            ("mem_commit", Vec(PT)),
+        ],
+    )
+    # ---- spartan setup artifacts: the CLI universal_setup files are the
+    # CanonicalSerialize bytes of snark::Parameters / nizk::Parameters
+    # (reference cli/src/setup.rs:47-72, lib.rs:43-48,151-154,
+    # data_structure.rs:118-165) ----
+    add(
+        sp_sn.AddrTimestamps,
+        [
+            ("addr_index", Vec(Vec(U64))),
+            ("addrs", Vec(Vec(FR))),
+            ("read_ts_list", Vec(Vec(FR))),
+            ("audit_ts", Vec(FR)),
+        ],
+    )
+    add(
+        sp_sn.EncodeMemory,
+        [
+            ("row_addr_ts", S(sp_sn.AddrTimestamps)),
+            ("col_addr_ts", S(sp_sn.AddrTimestamps)),
+            ("val_list", Vec(Vec(FR))),
+            ("ops_list", Vec(FR)),
+            ("mem_list", Vec(FR)),
+        ],
+    )
+    add(
+        sp_sn.SnarkSetup,
+        [
+            ("params", S(sp_sn.SnarkParameters)),
+            ("r1cs", S(sp.R1CSInstance)),
+            ("encode", S(sp_sn.EncodeMemory)),
+            ("encode_commit", S(sp_sn.EncodeCommit)),
+        ],
+    )
+
+    # ---- spartan (spartan/src/data_structure.rs:168-339) ----
+    add(sp_common.InnerProductProof, [("l_vec", Vec(PT)), ("r_vec", Vec(PT))])
+    add(
+        sp.SumCheckEvalProof,
+        [
+            ("d_commit", PT),
+            ("dot_cd_commit", PT),
+            ("z", Vec(FR)),
+            ("z_delta", FR),
+            ("z_beta", FR),
+        ],
+    )
+    add(
+        sp.SumCheckProof,
+        [
+            ("comm_polys", Vec(PT)),
+            ("comm_evals", Vec(PT)),
+            ("proofs", Vec(S(sp.SumCheckEvalProof))),
+        ],
+    )
+    add(sp.KnowledgeProof, [("t_commit", PT), ("z1", FR), ("z2", FR)])
+    add(
+        sp.ProductProof,
+        [
+            ("commit_alpha", PT),
+            ("commit_beta", PT),
+            ("commit_delta", PT),
+            ("z", Vec(FR)),
+        ],
+    )
+    add(sp.EqProof, [("alpha", PT), ("z", FR)])
+    add(
+        sp.DotProductProof,
+        [
+            ("inner_product_proof", S(sp_common.InnerProductProof)),
+            ("delta", PT),
+            ("beta", PT),
+            ("z1", FR),
+            ("z2", FR),
+        ],
+    )
+    add(
+        sp.KnowledgeProductCommit,
+        [
+            ("va_commit", PT),
+            ("vb_commit", PT),
+            ("vc_commit", PT),
+            ("prod_commit", PT),
+        ],
+    )
+    add(
+        sp.KnowledgeProductProof,
+        [
+            ("knowledge_proof", S(sp.KnowledgeProof)),
+            ("product_proof", S(sp.ProductProof)),
+        ],
+    )
+    add(
+        sp.R1CSSatProof,
+        [
+            ("commit_witness", Vec(PT)),
+            ("proof_one", S(sp.SumCheckProof)),
+            ("proof_two", S(sp.SumCheckProof)),
+            ("w_ry", FR),
+            ("product_proof", S(sp.DotProductProof)),
+            ("knowledge_product_commit", S(sp.KnowledgeProductCommit)),
+            ("knowledge_product_proof", S(sp.KnowledgeProductProof)),
+            ("sc1_eq_proof", S(sp.EqProof)),
+            ("sc2_eq_proof", S(sp.EqProof)),
+            ("commit_ry", PT),
+        ],
+    )
+    add(
+        sp.NIZKProof,
+        [
+            ("r1cs_satisfied_proof", S(sp.R1CSSatProof)),
+            ("r", Tup(Vec(FR), Vec(FR))),
+        ],
+    )
+    add(
+        sp_sn.LayerProductCircuitProof,
+        [
+            ("polys", Vec(POLY)),
+            ("claim_prod_left", Vec(FR)),
+            ("claim_prod_right", Vec(FR)),
+        ],
+    )
+    add(
+        sp_sn.ProductCircuitEvalProof,
+        [
+            ("layers_proof", Vec(S(sp_sn.LayerProductCircuitProof))),
+            ("claim_dotp", Tup(Vec(FR), Vec(FR), Vec(FR))),
+        ],
+    )
+    add(
+        sp_sn.ProductLayerProof,
+        [
+            ("proof_memory", S(sp_sn.ProductCircuitEvalProof)),
+            ("proof_ops", S(sp_sn.ProductCircuitEvalProof)),
+            ("eval_dotp", Tup(Vec(FR), Vec(FR))),
+            ("eval_row", Tup(FR, Vec(FR), Vec(FR), FR)),
+            ("eval_col", Tup(FR, Vec(FR), Vec(FR), FR)),
+        ],
+    )
+    add(
+        sp_sn.HashLayerProof,
+        [
+            ("proof_derefs", S(sp.DotProductProof)),
+            ("proof_ops", S(sp.DotProductProof)),
+            ("proof_mem", S(sp.DotProductProof)),
+            ("evals_derefs", Tup(Vec(FR), Vec(FR))),
+            ("evals_row", Tup(Vec(FR), Vec(FR), FR)),
+            ("evals_col", Tup(Vec(FR), Vec(FR), FR)),
+            ("evals_val", Vec(FR)),
+        ],
+    )
+    add(
+        sp_sn.R1CSEvalsProof,
+        [
+            ("prod_layer_proof", S(sp_sn.ProductLayerProof)),
+            ("hash_layer_proof", S(sp_sn.HashLayerProof)),
+            ("derefs_commit", Vec(PT)),
+        ],
+    )
+    add(
+        sp_sn.SNARKProof,
+        [
+            ("r1cs_satisfied_proof", S(sp.R1CSSatProof)),
+            ("matrix_evals", Tup(FR, FR, FR)),
+            ("r1cs_evals_proof", S(sp_sn.R1CSEvalsProof)),
         ],
     )
 

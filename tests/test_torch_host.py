@@ -14,25 +14,28 @@ from ckb_zkp_tpu import bench_circuits as ref_circuits
 from ckb_zkp_tpu.host.pairing import get_curve
 from ckb_zkp_tpu.schemes import groth16 as ref_groth16
 from ckb_zkp_tpu.schemes.groth16.qap import QapMatrices as RefQap
+from ckb_zkp_tpu.transcript import merlin as ref_merlin
 from ckb_zkp_tpu_torch import bench_circuits as port_circuits
 from ckb_zkp_tpu_torch.convert import point_from_reference
 from ckb_zkp_tpu_torch.host.pairing import get_curve as port_curve
 from ckb_zkp_tpu_torch.r1cs import R1csShape
 from ckb_zkp_tpu_torch.schemes import groth16
 from ckb_zkp_tpu_torch.schemes.groth16.types import Proof
+from ckb_zkp_tpu_torch.transcript import merlin
 
 CURVE = get_curve("bn254")
 FR = CURVE.fr.modulus
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the copies kept word for word (r1cs/system.py leaves out the witness cache)
+# the copies kept word for word (r1cs/system.py leaves out the witness cache;
+# transcript/merlin.py runs its byte work in C: test_merlin_* below)
 EXACT_COPIES = ("host/curves.py", "host/field.py", "host/pairing.py", "host/tower.py",
                 "r1cs/lc.py", "bench_circuits.py", "schemes/groth16/types.py",
                 "schemes/groth16/verifier.py", "serialize/ark.py", "circuits/mini.py",
-                "transcript/__init__.py", "transcript/keccak.py", "transcript/merlin.py",
-                "transcript/chacha.py", "host/poly.py", "serialize/tobytes.py",
+                "transcript/__init__.py", "transcript/keccak.py", "transcript/chacha.py", "host/poly.py", "serialize/tobytes.py",
                 "schemes/errors.py", "schemes/marlin/fs_rng.py",
                 "schemes/plonk/composer.py", "schemes/plonk/__init__.py",
-                "schemes/plonk/serialize.py")
+                "schemes/plonk/serialize.py", "host/ristretto.py",
+                "schemes/spartan/polynomial.py", "schemes/spartan/__init__.py")
 
 
 @pytest.mark.parametrize("path", EXACT_COPIES)
@@ -46,6 +49,57 @@ def test_copy_matches_its_original(path):
         header, _, copy = f.read().partition("\n")
     assert header.startswith(f"# Copied from ckb_zkp_tpu/{path} ")
     assert copy == re.sub(r"(/\w+)+/reference/", "ckb-zkp ", original)
+
+
+def test_merlin_known_vector():
+    """merlin's own `equivalence_simple` vector through the port's C STROBE."""
+    t = merlin.Transcript(b"test protocol")
+    t.append_message(b"some label", b"some data")
+    assert t.challenge_bytes(b"challenge", 32).hex() == (
+        "d5a21972d0d5fe320c0d263fac7fffb8145aa640af6e9bca177c03c7efcf0615")
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_merlin_equals_the_reference(seed, monkeypatch):
+    """Random transcripts (messages across the 166-byte block edge, u64s,
+    challenges of 0-500 bytes, more messages than one queue holds, with
+    the queue cut to 5) give the reference transcript's challenges and
+    state, and the STROBE ops (key, a continued op, a flag mismatch) its
+    bytes."""
+    monkeypatch.setattr(merlin, "_QUEUE_MAX", 5)
+    rng = np.random.default_rng(seed)
+    rand = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()  # noqa: E731
+    label = rand(int(rng.integers(0, 20)))
+    want, got = ref_merlin.Transcript(label), merlin.Transcript(label)
+    for _ in range(60):
+        k, lbl = rng.random(), rand(int(rng.integers(0, 30)))
+        if k < 0.6:
+            m = rand(int(rng.choice([0, 1, 8, 32, 165, 166, 167, 400])))
+            want.append_message(lbl, m)
+            got.append_message(lbl, bytearray(m))
+        elif k < 0.7:
+            x = int(rng.integers(0, 1 << 63))
+            want.append_u64(lbl, x)
+            got.append_u64(lbl, x)
+        else:
+            n = int(rng.choice([0, 1, 31, 64, 200, 500]))
+            assert got.challenge_bytes(lbl, n) == want.challenge_bytes(lbl, n)
+    for i in range(13):
+        want.append_u64(b"i", i)
+        got.append_u64(b"i", i)
+    got.append_messages([b"m"] * 7, [bytes([i]) * i for i in range(7)])
+    for i in range(7):
+        want.append_message(b"m", bytes([i]) * i)
+    assert got.challenge_bytes(b"end", 32) == want.challenge_bytes(b"end", 32)
+    assert got.strobe.state == bytes(want.strobe.state)
+    a, b = ref_merlin.Strobe128(b"p"), merlin.Strobe128(b"p")
+    for s in (a, b):
+        s.key(rand(0) + b"key bytes" * 20, False)
+        s.ad(b"x", False)
+        s.ad(b"y", True)
+    assert b.prf(40, False) == a.prf(40, False) and b.state == bytes(a.state)
+    with pytest.raises(AssertionError, match="flag mismatch"):
+        b.ad(b"z", True)
 
 
 @pytest.mark.parametrize("circuit,n", [("square_chain_shape", 62),

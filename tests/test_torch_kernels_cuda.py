@@ -3,7 +3,10 @@ at a small size, BN254's 8-word kernels and BLS12-381's 12-word K1-K6;
 the polynomial layer and a KZG10 commitment against the CPU and host ints,
 the Marlin phase at 2^12; the reference PLONK circuit and aSVC's key_gen
 at 2^12 on the card against the CPU, and the PLONK and aSVC phases at
-2^13. Marked `cuda`; without a card they skip."""
+2^13; K1 at curve25519's moduli, the Spartan Mini proofs (NIZK and SNARK,
+BN254 and curve25519, the device thresholds at 2) on the card against
+the CPU, and chip_smoke's Spartan runs at a small size with the thresholds
+patched down. Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -408,3 +411,47 @@ def test_plonk_and_asvc_phases_at_2_13(smoke):
     assert all(v > 0 for v in run["launches"].values())
     wide = smoke.phase_asvc(card, 13)
     assert all(v > 0 for v in wide["wide"].values()) and wide["fr_mont_mul"] > 0
+
+
+def test_k1_at_curve25519_moduli_bit_equal(smoke):
+    """K1 at 2^255 - 19 and at l against its plain version, edge rows
+    included (`phase_spartan_kernels` at 2^12 rows)."""
+    results = {}
+    smoke.phase_spartan_kernels(results, 1 << 12)
+    assert set(results) == {"mont_mul_25519_fq", "mont_mul_25519_fr"}
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
+
+
+def test_spartan_mini_proofs_on_the_card_equal_the_cpu(smoke):
+    """The Mini NIZK and SNARK proofs on BN254 and curve25519 with
+    FIXED_BASE_MSM_MIN and DEVICE_SUMCHECK_MIN at 2 (every commitment of
+    two or more scalars on the RCB engine or the Ristretto group, every
+    sumcheck on device tables): the card's bytes equal the CPU's (the
+    plain versions; some minutes of CPU)."""
+    assert smoke.spartan_mini_proofs("cuda") == smoke.spartan_mini_proofs("cpu")
+
+
+def test_spartan_runs_small_with_the_device_paths_patched_on(smoke, monkeypatch):
+    """chip_smoke's Spartan runs at 2^6 constraints (SNARK 2^3), with
+    FIXED_BASE_MSM_MIN at 8 and DEVICE_SUMCHECK_MIN at 16 so that the
+    witness commitment's rows, the generators and the sumchecks run on the
+    card: every verdict, bytes round trip and contract code, device calls
+    of both kinds, K1, K2 and K5 on BN254 and K1 at both curve25519
+    fields."""
+    from ckb_zkp_tpu_torch.ops import msm, sumcheck
+
+    monkeypatch.setattr(msm, "FIXED_BASE_MSM_MIN", 8)
+    monkeypatch.setattr(sumcheck, "DEVICE_SUMCHECK_MIN", 16)
+    card = torch.cuda.get_device_name(0)
+    for label, curve, kind, log_c, contract in (
+            ("a", "bn254", "nizk", 6, True), ("b", "curve25519", "nizk", 6, False),
+            ("c", "bn254", "snark", 3, True)):
+        run = smoke.spartan_run(card, label, curve, kind, log_c, contract,
+                                profile=label == "a")
+        assert run["counts"]["msm_device"] > 0 and run["counts"]["sumcheck_device"] > 0
+        if curve == "bn254":
+            assert run["counts"]["generators_device"] > 0
+            assert all(run["launches"][k] > 0 for k in ("mont_mul", "scan_prefix_madd",
+                                                         "rcb_add"))
+        else:
+            assert run["k1"]["curve25519_fq"] > 0 and run["k1"]["curve25519_fr"] > 0

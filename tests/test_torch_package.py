@@ -13,7 +13,8 @@ import pytest
 
 import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import contracts, convert
-from ckb_zkp_tpu_torch.ops import cuda_build, cuda_probe, field, limbs, msm, ntt
+from ckb_zkp_tpu_torch.ops import (cuda_build, cuda_probe, field, limbs, msm, ntt,
+                                   ristretto_device, sumcheck)
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
 from ckb_zkp_tpu_torch.ops.hdomain import HDomain
 from ckb_zkp_tpu_torch.schemes import asvc, kzg10, marlin
@@ -21,6 +22,8 @@ from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap, serialize
 from ckb_zkp_tpu_torch.schemes.marlin import ahp
 from ckb_zkp_tpu_torch.schemes.plonk import Plonk
 from ckb_zkp_tpu_torch.schemes.plonk.plonk import VerifierKey as PlonkVerifierKey
+from ckb_zkp_tpu_torch.schemes.spartan import common as sp_common
+from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
 from ckb_zkp_tpu_torch.serialize import ark_schemes
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
@@ -40,6 +43,9 @@ import ckb_zkp_tpu_torch.ops.poly, ckb_zkp_tpu_torch.ops.hdomain, ckb_zkp_tpu_to
 import ckb_zkp_tpu_torch.schemes.plonk, ckb_zkp_tpu_torch.schemes.plonk.serialize
 import ckb_zkp_tpu_torch.schemes.asvc, ckb_zkp_tpu_torch.contracts
 import ckb_zkp_tpu_torch.serialize.ark_schemes, ckb_zkp_tpu_torch.convert
+import ckb_zkp_tpu_torch.schemes.spartan, ckb_zkp_tpu_torch.host.ristretto
+import ckb_zkp_tpu_torch.ops.ristretto_device, ckb_zkp_tpu_torch.ops.sumcheck
+import ckb_zkp_tpu_torch.ops.edwards
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -156,6 +162,18 @@ def test_source_scan_rejects_the_alias_loader():
     (contracts.universal_marlin_verifier, "device"),
     (contracts.universal_plonk_verifier, "device"),
     (ark_schemes.ArkSchemeCodec.__init__, "device"), (ark_schemes.ark_decode, "device"),
+    (msm.msm_over_fixed_base, "device"), (msm.msm_over_fixed_base_many, "device"),
+    (ristretto_device.DeviceRistrettoGroup.__init__, "device"),
+    (ristretto_device.device_ristretto_group, "device"),
+    (sumcheck.DeviceSumcheck.__init__, "device"), (sp_common.poly_commit_vec, "device"),
+    (sp_common.packing_poly_commit, "device"), (nizk.create_nizk_proof, "device"),
+    (nizk.verify_nizk_proof, "device"), (snark.generate_random_parameters, "device"),
+    (snark.create_snark_proof, "device"), (snark.verify_snark_proof, "device"),
+    (contracts.universal_spartan_nizk_verifier, "device"),
+    (contracts.universal_spartan_snark_verifier, "device"),
+    (msm.generator_multiples, "device"), (sp_common.poly_commitment_parameters, "device"),
+    (sp_common.r1cs_satisfied_parameters, "device"), (nizk.generate_setup_parameters, "device"),
+    (snark.generate_setup_snark_parameters, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
