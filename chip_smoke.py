@@ -68,7 +68,7 @@ verified and refused under a changed public input, every K1-K6 launched
 by the phase (`marlin_launches` in the kernel line) and the largest
 opening's synthetic division in O(log n) launches; the Mini proof on the
 card equal to the port's CPU proof from the plain versions (a child
-process started before the build, `phase_marlin_mini`); a KZG10 round
+process started after the timed kernel rows, `phase_marlin_mini`); a KZG10 round
 trip over BLS12-381 at degree 2^12 that launches every 12-word K1-K6
 (`kzg_launches` in the `_nw12` rows, `phase_kzg_wide`);
 PLONK (`phase_plonk`): `Plonk.setup` (4n + 1 powers: K6 twice), `keygen`
@@ -93,21 +93,38 @@ refused, the 12-word K1-K6 and Fr's K1 launched (`asvc_launches` in the
 the BLS12-381 phase (7), when the CPU child of its Mini proofs is done;
 after K1 at curve25519's two fields against its plain version at 2^20
 rows, `phase_spartan_kernels`): the runs of SPARTAN_RUNS, square chains whose
-witness count equals their constraint count: (a) a BN254 NIZK of 2^20
+witness count equals their constraint count: (a) a BN254 NIZK of 2^19
 constraints, alone and under the profiler, verified through its contract
 verifier (OK, ERR_VERIFY on a changed public input), whose witness
-commitment's 1024 row MSMs run on the RCB engine (K1, K2, K5 required),
+commitment's 512 row MSMs run on the RCB engine (K1, K2, K5 required),
 then (b) a curve25519 NIZK of 2^19 on the Ristretto group (K1 at
 2^255 - 19 and at l required) and (c) a BN254 SNARK of 2^16 constraints
 (contract verifier too; its generators one fixed-base MSM on the card), in
 child processes beside each other, each with its setup, hash, prove and
 verify seconds and stages, its device and host calls of
 `msm_over_fixed_base` and of the sumchecks as the launches show them
-(`spartan_counted`: a run with no device call of either fails), the proof
+(`device_calls_counted`: a run with no device call of either fails), the proof
 and vk bytes round trip, and the Mini NIZK and SNARK proofs on both curves
 with both thresholds at 2 in a child on the card against a CPU child's
 bytes (`spartan_launches` in the
-K1-K5 rows, two K1 rows for curve25519's fields); (7)
+K1-K5 rows, two K1 rows for curve25519's fields); Bulletproofs, Hyrax and
+Libra (`phase_dl`, after Spartan): the runs of DL_RUNS, (g) Libra over
+BLS12-381 on 2^16 copies of the test circuit side by side (2^19 inputs and
+witnesses) in this process, its zk prove alone under the profiler, then
+its bytes and its contract verifier's OK and ERR_VERIFY, beside (d)
+Bulletproofs over BN254 and (e) over curve25519 on the 2^11 square chain
+(BN254's verdicts through the contract verifier on the (Generators,
+R1csCircuit, Proof) cell), (f) Hyrax over BLS12-381 on 2^16 instances (its
+contract verifier) and (g)'s plain prove and verdicts in child processes,
+each with
+its setup, prove and verify seconds and stages, its bytes round trip, its
+device and host calls (`device_calls_counted`: a device MSM in each, a
+device sumcheck in (f) and (g)), K1 by field and the K1-K6 launches (the
+12-word ones apart), which must include K1, K2, K5 and K6 in (d), K1 at
+2^255 - 19 in (e), the 12-word K2, K5 and K6 and Fr's K1 in (f) and (g);
+the Mini proofs of the reference tests with both thresholds at 2 on the
+card against a CPU child's bytes (`dl_launches` in the K1-K6, the
+`_nw12` and the `mont_mul_25519_fq` rows); (7)
 BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
@@ -1974,8 +1991,10 @@ def mini_proof(device: str) -> dict:
 def start_mini_cpu():
     """The Mini Marlin proof and the reference PLONK proof
     (`plonk_reference_proof`) from the plain versions on the host's CPU, in
-    a child process that runs while the kernels are checked (its torch on
-    2 threads). `finish_mini_cpu` reads them: {"marlin": ..., "plonk": ...}."""
+    a child process (its torch on 2 threads) started after the timed kernel
+    rows, so that none of them is timed beside it; it runs while the
+    Groth16 phases use the card. `finish_mini_cpu` reads them:
+    {"marlin": ..., "plonk": ...}."""
     import subprocess
 
     code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
@@ -2513,8 +2532,10 @@ def phase_asvc(card: str, log2: int = ASVC_LOG2) -> dict:
 # ------------------------------------------------------------------ Spartan
 # (label, curve, scheme, log2 constraints, contract verifiers). Each run is
 # a square chain whose witness count equals its constraint count. (a) the
-# NIZK over BN254 at 2^20: its witness commitment is 1024 rows of 1024
-# scalars on the RCB engine, its sumcheck tables 2^20 and 2^21 rows; (b)
+# NIZK over BN254 at 2^19 (2^20 until the Bulletproofs/Hyrax/Libra phase came:
+# cut to keep the smoke within its time limit): its witness commitment is 512
+# rows of 1024 scalars on the RCB engine, its sumcheck tables 2^19 and 2^20
+# rows; (b)
 # the NIZK over curve25519 at 2^19, the least whose commitment rows (1024
 # scalars) reach FIXED_BASE_MSM_MIN, on the Ristretto group; (c) the SNARK
 # over BN254 at 2^16, the least whose SPARK encoding (15 lists of 2^16
@@ -2524,7 +2545,7 @@ def phase_asvc(card: str, log2: int = ASVC_LOG2) -> dict:
 # them (OK, then ERR_VERIFY on a changed public input): they decode the
 # cells, hash the R1CS and run the verifier.
 SPARTAN_RUNS = (
-    ("a", "bn254", "nizk", 20, True),
+    ("a", "bn254", "nizk", 19, True),
     ("b", "curve25519", "nizk", 19, False),
     ("c", "bn254", "snark", 16, True),
 )
@@ -2539,34 +2560,58 @@ def spartan_curve(name: str):
     return Curve25519() if name == "curve25519" else get_curve(name)
 
 
+ROUND_METHODS = ("cubic_round", "quad_round", "cubic3_round_many", "libra_p1_round",
+                 "libra_p2_round", "hyrax_p1_round", "hyrax_p23_round")  # DeviceSumcheck's
+
+
+def spartan_sumchecks() -> tuple:
+    """Spartan's sumchecks: NIZK phases one and two, SNARK's cubic."""
+    from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
+
+    return ((nizk, "sum_check_phase_one"), (nizk, "sum_check_phase_two"),
+            (snark, "sum_check_cubic_prover"))
+
+
+def gkr_sumchecks() -> tuple:
+    """Hyrax's and Libra's sumchecks: a Hyrax layer's zk sumcheck, and each
+    phase of a Libra layer (plain: the device or the host prover; zk: the
+    prover over either round engine)."""
+    from ckb_zkp_tpu_torch.schemes.hyrax.zk_sumcheck import ZkSumcheckProof
+    from ckb_zkp_tpu_torch.schemes.libra import linear_gkr
+    from ckb_zkp_tpu_torch.schemes.libra.zk_linear_gkr import ZKSumCheckProof
+
+    return ((ZkSumcheckProof, "prover"), (linear_gkr, "_phase_one_device"),
+            (linear_gkr, "_phase_two_device"), (linear_gkr, "phase_one_prover"),
+            (linear_gkr, "phase_two_prover"), (ZKSumCheckProof, "phase_one_prover"),
+            (ZKSumCheckProof, "phase_two_prover"))
+
+
 @contextlib.contextmanager
-def spartan_counted():
-    """Counts, while open, where Spartan's MSMs over a generator list and
+def device_calls_counted(sumchecks: tuple):
+    """Counts, while open, where a scheme's MSMs over a generator list and
     its sumchecks ran, as the launches show. A call of
     `msm_over_fixed_base_many` (`msm_over_fixed_base` is one row of it)
     counts one device call, and its rows on the device, when the device
     group's `msm_many` ran them and launched kernels; its other rows count
-    as host MSMs. A sumcheck (NIZK phases one and two, SNARK's cubic)
-    counts on the device when a `DeviceSumcheck` round method ran in it and
-    launched kernels (`sumcheck_device_rounds` counts those rounds), else
-    on the host. `generators` counts the points `generator_multiples`
-    made, `generators_device` those a launching `fixed_base_msm` made.
-    Yields the dict of counts."""
+    as host MSMs. A sumcheck (each (owner, name) of `sumchecks`, e.g.
+    `spartan_sumchecks()`) counts on the device when a `DeviceSumcheck`
+    round method ran in it and launched kernels (`sumcheck_device_rounds`
+    counts those rounds), else on the host. `generators` counts the
+    points `generator_multiples` made, `generators_device` those a
+    launching `fixed_base_msm` made. Yields the dict of counts."""
     from ckb_zkp_tpu_torch.ops import cuda_build, msm
     from ckb_zkp_tpu_torch.ops.sumcheck import DeviceSumcheck
-    from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
 
     n = dict.fromkeys(("msm_device", "msm_device_rows", "msm_host", "sumcheck_device",
                        "sumcheck_device_rounds", "sumcheck_host", "generators",
                        "generators_device"), 0)
     G = msm.DeviceCurveGroup
-    rounds = ("cubic_round", "quad_round", "cubic3_round_many")
     sites = [(msm, "msm_over_fixed_base_many"), (msm, "generator_multiples"),
              (G, "msm_many"), (G, "fixed_base_msm"),
-             *((DeviceSumcheck, r) for r in rounds),
-             (nizk, "sum_check_phase_one"), (nizk, "sum_check_phase_two"),
-             (snark, "sum_check_cubic_prover")]
-    saved = {name: getattr(owner, name) for owner, name in sites}
+             *((DeviceSumcheck, r) for r in ROUND_METHODS), *sumchecks]
+    # the callables, and the raw attributes (a classmethod as itself) to restore
+    saved = {site: getattr(*site) for site in sites}
+    raw = {site: vars(site[0])[site[1]] for site in sites}
     live = {"rows": 0, "rounds": 0}
 
     def launches() -> int:
@@ -2574,7 +2619,7 @@ def spartan_counted():
 
     def many(curve, base, rows, *a, **kw):
         r0 = live["rows"]
-        out = saved["msm_over_fixed_base_many"](curve, base, rows, *a, **kw)
+        out = saved[msm, "msm_over_fixed_base_many"](curve, base, rows, *a, **kw)
         dev = live["rows"] - r0
         n["msm_device"] += dev > 0
         n["msm_device_rows"] += dev
@@ -2583,32 +2628,32 @@ def spartan_counted():
 
     def generators(curve, scalars, *a, **kw):
         n["generators"] += len(scalars)
-        return saved["generator_multiples"](curve, scalars, *a, **kw)
+        return saved[msm, "generator_multiples"](curve, scalars, *a, **kw)
 
     def msm_many(self, jobs):
         k = launches()
-        out = saved["msm_many"](self, jobs)
+        out = saved[G, "msm_many"](self, jobs)
         live["rows"] += len(jobs) if launches() > k else 0
         return out
 
     def fixed_base_msm(self, table, scalars, *a, **kw):
         k = launches()
-        out = saved["fixed_base_msm"](self, table, scalars, *a, **kw)
+        out = saved[G, "fixed_base_msm"](self, table, scalars, *a, **kw)
         n["generators_device"] += scalars.shape[0] if launches() > k else 0
         return out
 
-    def round_method(name):
+    def round_method(site):
         def run(self, *a, **kw):
             k = launches()
-            out = saved[name](self, *a, **kw)
+            out = saved[site](self, *a, **kw)
             live["rounds"] += launches() > k
             return out
         return run
 
-    def sumcheck(name):
+    def sumcheck(site):
         def run(*a, **kw):
             r0 = live["rounds"]
-            out = saved[name](*a, **kw)
+            out = saved[site](*a, **kw)
             dev = live["rounds"] - r0
             n["sumcheck_device"] += dev > 0
             n["sumcheck_device_rounds"] += dev
@@ -2616,19 +2661,17 @@ def spartan_counted():
             return out
         return run
 
-    wrapped = {"msm_over_fixed_base_many": many, "generator_multiples": generators,
-               "msm_many": msm_many, "fixed_base_msm": fixed_base_msm,
-               **{r: round_method(r) for r in rounds},
-               **{name: sumcheck(name) for name in ("sum_check_phase_one",
-                                                    "sum_check_phase_two",
-                                                    "sum_check_cubic_prover")}}
-    for owner, name in sites:
-        setattr(owner, name, wrapped[name])
+    wrapped = {(msm, "msm_over_fixed_base_many"): many, (msm, "generator_multiples"): generators,
+               (G, "msm_many"): msm_many, (G, "fixed_base_msm"): fixed_base_msm,
+               **{(DeviceSumcheck, r): round_method((DeviceSumcheck, r)) for r in ROUND_METHODS},
+               **{site: sumcheck(site) for site in sumchecks}}
+    for site in sites:
+        setattr(*site, wrapped[site])
     try:
         yield n
     finally:
-        for owner, name in sites:
-            setattr(owner, name, saved[name])
+        for site in sites:
+            setattr(*site, raw[site])
 
 
 @contextlib.contextmanager
@@ -2747,7 +2790,7 @@ def spartan_run(card: str, label: str, curve_name: str, kind: str, log_c: int,
     torch.cuda.synchronize()
     cuda_build.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    with spartan_counted() as counts, k1_by_modulus() as k1:
+    with device_calls_counted(spartan_sumchecks()) as counts, k1_by_modulus() as k1:
         t0 = time.perf_counter()
         if kind == "nizk":
             r1cs = nizk.generate_r1cs(curve, SquareChain(n_c, p))
@@ -2834,8 +2877,8 @@ def spartan_run(card: str, label: str, curve_name: str, kind: str, log_c: int,
 
 def start_spartan_run(card: str, label: str):
     """`spartan_run` of SPARTAN_RUNS' `label` in a child process on the
-    card (its own CUDA context and launch counts); `finish_spartan_run`
-    relays its lines and reads its results."""
+    card (its own CUDA context and launch counts); `finish_run` relays its
+    lines and reads its results."""
     import subprocess
 
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
@@ -2845,13 +2888,15 @@ def start_spartan_run(card: str, label: str):
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def finish_spartan_run(child, label: str) -> dict:
+def finish_run(child, label: str) -> dict:
+    """Relays the lines of a run's child process (`start_spartan_run`,
+    `start_dl_run`) and reads its results, its last line."""
     out, err = child.communicate(timeout=1200)
     lines = out.strip().splitlines()
     for line in lines[:-1]:
         log(line)
     if child.returncode != 0:
-        raise AssertionError(f"Spartan run ({label}) failed: {err[-3000:]}")
+        raise AssertionError(f"run ({label}) failed: {err[-3000:]}")
     return json.loads(lines[-1])
 
 
@@ -2896,7 +2941,7 @@ def phase_spartan(card: str, cpu_child) -> dict:
     beside each other, with the Mini proofs (thresholds at 2) in a third
     child on the card, whose bytes must equal the CPU child's. Every run
     must make device calls of `msm_over_fixed_base` and of the sumchecks
-    (as `spartan_counted` observes them); (a) must launch K1, K2, K5 and
+    (as `device_calls_counted` observes them); (a) must launch K1, K2, K5 and
     K6 (its generators) and (b) K1 at 2^255 - 19 and at l. Returns the runs, the K1-K5
     launches of the three runs together and (b)'s K1 launches by field."""
     import torch
@@ -2909,7 +2954,7 @@ def phase_spartan(card: str, cpu_child) -> dict:
     children["mini"] = start_spartan_mini(DEVICE)
     try:
         for label in ("b", "c"):
-            runs[label] = finish_spartan_run(children[label], label)
+            runs[label] = finish_run(children[label], label)
         got = finish_mini_cpu(children["mini"])
         rest_s = time.perf_counter() - t0 - a_s
     finally:
@@ -2938,6 +2983,488 @@ def phase_spartan(card: str, cpu_child) -> dict:
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in SPARTAN_KERNELS}
     return {"runs": runs, "launches": total, "k1_25519": runs["b"]["k1"],
             "a_s": a_s, "rest_s": rest_s}
+
+
+# ---- Bulletproofs, Hyrax and Libra on the discrete-log layer (phase_dl) ----
+# The layers of tests/test_hyrax.py:20-25 and tests/test_libra.py (16 inputs:
+# 8 witnesses, then 8 inputs; 8, 4 and 4 gates).
+GKR_LAYERS = (
+    ((1, 0, 1), (0, 2, 3), (0, 4, 5), (1, 6, 7), (1, 15, 8), (1, 9, 10), (0, 11, 12),
+     (0, 13, 14)),
+    ((1, 0, 1), (0, 2, 3), (0, 4, 5), (1, 6, 7)),
+    ((0, 0, 1), (0, 1, 2), (1, 2, 3), (1, 1, 3)),
+)
+# (label, scheme, curve, log2 of the size), each the least size where every
+# device call of its scheme launches, every wire used: (d), (e) the square
+# chain of 2^11 constraints (N = 2048: the commitments and IPP_P device MSMs
+# of 2048 scalars, the IPA's first round four of 1024); (f) 2^16 instances of
+# the test circuit (the witness commitment 512 rows of 1024, the zk sumcheck
+# tables n * ng >= DEVICE_SUMCHECK_MIN * 4); (g) 2^16 copies of it side by
+# side as one layered circuit (layers of 2^20 inputs, 2^19, 2^18 and 2^18
+# gates: every layer's tables 2^bits >= DEVICE_SUMCHECK_MIN; the zk witness
+# commitment 512 rows of 1024); its plain half ("g_plain") runs as a run of
+# its own.
+DL_RUNS = (
+    ("d", "bulletproofs", "bn254", 11),
+    ("e", "bulletproofs", "curve25519", 11),
+    ("f", "hyrax", "bls12_381", 16),
+    ("g", "libra_zk", "bls12_381", 16),
+    ("g_plain", "libra_plain", "bls12_381", 16),
+)
+DL_KERNELS = ("mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add", "rcb_add",
+              "rcb_fixed_base")
+
+
+def libra_copies_circuit(copies: int):
+    """`copies` copies of GKR_LAYERS side by side as one Libra circuit of
+    8 * copies inputs and witnesses: copy j's gates read copy j's own
+    witnesses (node 8j + i, i < 8) and inputs (node 8 copies + 8j + i - 8)
+    in layer 0's layout (`libra/circuit.py`: witnesses, then inputs), and
+    its own gates of the layer below."""
+    from ckb_zkp_tpu_torch.schemes import libra
+
+    ni = 8 * copies
+
+    def node0(j, i):
+        return 8 * j + i if i < 8 else ni + 8 * j + i - 8
+
+    layers = [[(op, node0(j, a), node0(j, b)) for j in range(copies)
+               for op, a, b in GKR_LAYERS[0]]]
+    for width, raw in ((8, GKR_LAYERS[1]), (4, GKR_LAYERS[2])):
+        layers.append([(op, width * j + a, width * j + b) for j in range(copies)
+                       for op, a, b in raw])
+    return libra.Circuit(ni, ni, layers)
+
+
+def _changed(outputs):
+    """The outputs with their first element plus one."""
+    if isinstance(outputs[0], list):
+        return [_changed(outputs[0])] + [list(o) for o in outputs[1:]]
+    return [outputs[0] + 1] + list(outputs[1:])
+
+
+def _round_trip(curve, label, values: dict) -> dict:
+    """Each value's ark bytes, which must decode and encode back unchanged:
+    {name: (value, spec)} -> {name: bytes}."""
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import ark_decode, ark_encode
+
+    cells = {}
+    for name, (value, spec) in values.items():
+        cells[name] = ark_encode(curve, value, spec)
+        if ark_encode(curve, ark_decode(curve, cells[name], spec, DEVICE), spec) != cells[name]:
+            raise AssertionError(f"{label}: the {name} does not come back from its bytes")
+    return cells
+
+
+def bulletproofs_run(card: str, label: str, curve_name: str, log_c: int,
+                     profile: bool = False, on_proved=None) -> dict:
+    """Bulletproofs on the card through `create_random_proof` (the 2N + 3
+    generators on K6 or the host, the dense R1CS, the prove; its stages
+    timed): the square chain of 2^log_c constraints and as many witnesses;
+    the (Generators, R1csCircuit, Proof) cell through its ark bytes and
+    back; verification on the public input and refusal of a changed one,
+    on BN254 by the contract verifier on that cell (OK, ERR_VERIFY), on
+    curve25519 by `verify_proof`."""
+    from ckb_zkp_tpu_torch import contracts
+    from ckb_zkp_tpu_torch.schemes import bulletproofs as bp
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import S, Tup
+
+    curve = spartan_curve(curve_name)
+    p = curve.fr.modulus
+    rng = random.Random(SEED + 31)
+    circuit = SquareChain(1 << log_c, p, rng.randrange(2, p))
+    public = circuit.chain()[-1]
+    spec = Tup(S(bp.Generators), S(bp.R1csCircuit), S(bp.Proof))
+
+    def prove(t):  # the generators are drawn and made inside, as in the reference
+        return bp.create_random_proof(curve, circuit, rng, DEVICE, t)
+
+    def finish(out, secs):
+        gens, r1cs, proof = out["proof"]
+        t0 = time.perf_counter()
+        cell = _round_trip(curve, label, {"cell": ((gens, r1cs, proof), spec)})["cell"]
+        secs["bytes"] = time.perf_counter() - t0
+        verdicts = []
+        for x in (public, (public + 1) % p):
+            t0 = time.perf_counter()
+            if curve_name == "curve25519":  # the JAX contracts take pairing curves only
+                verdicts.append(bp.verify_proof(curve, gens, proof, r1cs, [x]))
+            else:
+                verdicts.append(contracts.mini_bulletproofs_verifier(
+                    curve_name, b"", cell, x.to_bytes(curve.fr.nbytes, "little"), DEVICE))
+            secs["verify" if x == public else "verify_changed"] = time.perf_counter() - t0
+        want = ([True, False] if curve_name == "curve25519"
+                else [contracts.OK, contracts.ERR_VERIFY])
+        return verdicts, want, {"cell_bytes": len(cell), "N": gens.N}
+
+    return dl_run(card, label, "bulletproofs", curve, 1 << log_c, None, prove, finish, profile,
+                  on_proved)
+
+
+def hyrax_run(card: str, label: str, log_n: int, profile: bool = False,
+              on_proved=None) -> dict:
+    """Hyrax on the card: 2^log_n instances of the test circuit with random
+    inputs and witnesses; `Parameters.new` (`gen_n` on K6), the hashes, the
+    prove (its stages timed); the parameters, proof and (inputs, outputs)
+    through their ark bytes and back; the contract verifier on those cells
+    with `circuit=`: OK, and ERR_VERIFY on a changed output."""
+    from ckb_zkp_tpu_torch import contracts
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import hyrax
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import FR, S, Tup, Vec
+
+    curve = get_curve("bls12_381")
+    p = curve.fr.modulus
+    n = 1 << log_n
+    rng = random.Random(SEED + 37)
+    witnesses = [[rng.randrange(p) for _ in range(8)] for _ in range(n)]
+    inputs = [[rng.randrange(p) for _ in range(8)] for _ in range(n)]
+    circuit = hyrax.Circuit(8, 8, [list(g) for g in GKR_LAYERS])
+    setup: dict = {}
+
+    def make(t):
+        t0 = time.perf_counter()
+        setup["params"] = params = hyrax.Parameters.new(curve, rng, log_n + 3, DEVICE)
+        t["params"] = time.perf_counter() - t0
+        setup["hashes"] = (circuit.circuit_to_hash(curve), params.param_to_hash())
+        t["hashes"] = time.perf_counter() - t0 - t["params"]
+
+    def prove(t):
+        return hyrax.HyraxProof.prover(setup["params"], witnesses, inputs, circuit,
+                                       *setup["hashes"], n, rng, DEVICE, t)
+
+    def finish(out, secs):
+        proof, outputs = out["proof"]
+        pub = Tup(Vec(Vec(FR)), Vec(Vec(FR)))
+        t0 = time.perf_counter()
+        cells = _round_trip(curve, label, {
+            "params": (setup["params"], S(hyrax.Parameters)),
+            "proof": (proof, S(hyrax.HyraxProof)),
+            "publics": ((inputs, outputs), pub), "changed": ((inputs, _changed(outputs)), pub)})
+        secs["bytes"] = time.perf_counter() - t0
+        verdicts = []
+        for name in ("publics", "changed"):
+            t0 = time.perf_counter()
+            verdicts.append(contracts.mini_hyrax_zk_linear_gkr_verifier(
+                "bls12_381", cells["params"], cells["proof"], cells[name], circuit=circuit,
+                device=DEVICE))
+            secs["verify" if name == "publics" else "verify_changed"] = time.perf_counter() - t0
+        return verdicts, [contracts.OK, contracts.ERR_VERIFY], {
+            "proof_bytes": len(cells["proof"]), "params_bytes": len(cells["params"])}
+
+    return dl_run(card, label, "hyrax", curve, n, make, prove, finish, profile, on_proved)
+
+
+def libra_run(card: str, label: str, kind: str, log_copies: int, profile: bool = False,
+              on_proved=None) -> dict:
+    """Libra on the card, `kind` "zk" or "plain", on
+    `libra_copies_circuit(2^log_copies)` with random inputs and witnesses
+    (the same for both kinds): the circuit and its hash (zk: and
+    `Parameters.new`, `gen_n` on K6, with its hash), the prove (its stages
+    timed; `on_proved` runs after it); zk: the parameters, proof and
+    (inputs, outputs) through their ark bytes and back, and the contract
+    verifier on those cells with `circuit=`: OK, and ERR_VERIFY on a
+    changed output; plain: `verify` and the refusal of a changed output."""
+    from ckb_zkp_tpu_torch import contracts
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.schemes import libra
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import FR, S, Tup, Vec
+
+    curve = get_curve("bls12_381")
+    p = curve.fr.modulus
+    copies = 1 << log_copies
+    rng = random.Random(SEED + 41)
+    witnesses = [rng.randrange(p) for _ in range(8 * copies)]
+    inputs = [rng.randrange(p) for _ in range(8 * copies)]
+    setup: dict = {}
+
+    def make(t):
+        t0 = time.perf_counter()
+        setup["circuit"] = circuit = libra_copies_circuit(copies)
+        t["circuit"] = time.perf_counter() - t0
+        if kind == "zk":
+            setup["params"] = params = libra.Parameters.new(curve, rng, 3 + log_copies, DEVICE)
+            t["params"] = time.perf_counter() - t0 - t["circuit"]
+        t1 = time.perf_counter()
+        setup["hashes"] = (circuit.circuit_to_hash(curve),) + (
+            (params.param_to_hash(),) if kind == "zk" else ())
+        t["hashes"] = time.perf_counter() - t1
+
+    def prove(t):
+        if kind == "plain":
+            return libra.LinearGKRProof.prover(curve, setup["circuit"], inputs, witnesses,
+                                               *setup["hashes"], DEVICE)
+        return libra.ZKLinearGKRProof.prover(setup["params"], setup["circuit"], inputs,
+                                             witnesses, *setup["hashes"], rng, DEVICE, t)
+
+    def finish_plain(out, secs):
+        proof, output = out["proof"]
+        circuit, chash = setup["circuit"], setup["hashes"][0]
+        verdicts = []
+        for o in (output, _changed(output)):
+            t0 = time.perf_counter()
+            verdicts.append(proof.verify(curve, circuit, o, witnesses + inputs, chash, DEVICE))
+            secs["verify" if o is output else "verify_changed"] = time.perf_counter() - t0
+        return verdicts, [True, False], {"gates": [layer.gates_count
+                                                   for layer in circuit.layers]}
+
+    def finish_zk(out, secs):
+        proof, output = out["proof"]
+        pub = Tup(Vec(FR), Vec(FR))
+        t0 = time.perf_counter()
+        cells = _round_trip(curve, label, {
+            "params": (setup["params"], S(libra.Parameters)),
+            "proof": (proof, S(libra.ZKLinearGKRProof)),
+            "publics": ((inputs, output), pub), "changed": ((inputs, _changed(output)), pub)})
+        secs["bytes"] = time.perf_counter() - t0
+        verdicts = []
+        for name in ("publics", "changed"):
+            t0 = time.perf_counter()
+            verdicts.append(contracts.mini_libra_zk_linear_gkr_verifier(
+                "bls12_381", cells["params"], cells["proof"], cells[name],
+                circuit=setup["circuit"], device=DEVICE))
+            secs["verify" if name == "publics" else "verify_changed"] = time.perf_counter() - t0
+        return verdicts, [contracts.OK, contracts.ERR_VERIFY], {
+            "proof_bytes": len(cells["proof"]), "params_bytes": len(cells["params"])}
+
+    return dl_run(card, label, f"libra {kind}", curve, copies, make, prove,
+                  finish_zk if kind == "zk" else finish_plain, profile, on_proved)
+
+
+def dl_run(card, label, scheme, curve, size, make, prove, finish, profile,
+           on_proved) -> dict:
+    """One run of phase_dl (`bulletproofs_run`, `hyrax_run`, `libra_run`):
+    `make(setup_timings)` (the setup and the hashes, where the scheme has
+    them apart from its prover), `prove(timings)` (under the profiler with
+    `profile`; then `on_proved()`), then `finish(out, secs)` -> (verdicts,
+    the verdicts wanted, facts),
+    counting the device and host calls of the MSMs over a generator list
+    and of the sumchecks (`device_calls_counted`), the K1-K6 launches (the
+    12-word ones apart, `cuda_build.WIDE`) and K1 by field, with the peak
+    device memory after the prove."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build
+
+    secs: dict = {}
+    setup_t: dict = {}
+    prove_t: dict = {}
+    out: dict = {}
+    prof = None
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with device_calls_counted(gkr_sumchecks()) as counts, k1_by_modulus() as k1:
+        if make is not None:
+            t0 = time.perf_counter()
+            make(setup_t)
+            torch.cuda.synchronize()
+            secs["setup"] = time.perf_counter() - t0
+        if profile:
+            prof = profiled(lambda: out.update(proof=prove(prove_t)))
+            secs["prove"] = prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            out["proof"] = prove(prove_t)
+            torch.cuda.synchronize()
+            secs["prove"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        prove_counts = dict(counts)
+        if on_proved is not None:
+            on_proved()
+        verdicts, want, facts = finish(out, secs)
+    launches = {k: cuda_build.COUNTS[k] - cuda_build.WIDE[k] for k in DL_KERNELS}
+    wide = {k: cuda_build.WIDE[k] for k in DL_KERNELS}
+    log(f"{scheme} ({label}) {curve.name}, size {size}: seconds {json.dumps(secs)}; setup "
+        f"stages {json.dumps(setup_t)}; prove stages {json.dumps(prove_t)}; verdicts "
+        f"{verdicts}; {json.dumps(facts)} [{card}]")
+    log(f"{scheme} ({label}) device and host calls (prove {json.dumps(prove_counts)}; prove "
+        f"to verify {json.dumps(counts)}); launches {json.dumps(launches)}, 12-word "
+        f"{json.dumps(wide)}; K1 by field {json.dumps(k1)}; peak device memory after the "
+        f"prove {peak} bytes [{card}]")
+    if profile:
+        log(f"{scheme} ({label}) prove, profiled: {json.dumps(prof)} [{card}]")
+    if verdicts != want:
+        raise AssertionError(f"{scheme} ({label}): verdicts {verdicts}, not {want}")
+    return {"seconds": secs, "setup_stages": setup_t, "prove_stages": prove_t,
+            "counts": dict(counts), "prove_counts": prove_counts, "launches": launches,
+            "wide": wide, "k1": k1,
+            "peak_bytes": peak, "profile": prof, "verdicts": verdicts, "facts": facts}
+
+
+def start_dl_run(card: str, label: str):
+    """The run of DL_RUNS' `label` in a child process on the card (its own
+    CUDA context and launch counts); `finish_run` relays its lines and
+    reads its results."""
+    import subprocess
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "print(json.dumps(chip_smoke.dl_run_of(sys.argv[2], sys.argv[3])))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, card, label], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def dl_run_of(card: str, label: str, profile: bool = False, on_proved=None) -> dict:
+    _, scheme, curve_name, log2 = next(r for r in DL_RUNS if r[0] == label)
+    if scheme == "bulletproofs":
+        return bulletproofs_run(card, label, curve_name, log2, profile, on_proved)
+    if scheme == "hyrax":
+        return hyrax_run(card, label, log2, profile, on_proved)
+    return libra_run(card, label, scheme.split("_")[1], log2, profile, on_proved)
+
+
+DL_SCHEMES = ("bulletproofs", "hyrax", "libra")
+
+
+def dl_mini_proofs(device: str, schemes=DL_SCHEMES) -> dict:
+    """The reference tests' proofs on `device`, with FIXED_BASE_MSM_MIN and
+    DEVICE_SUMCHECK_MIN patched to 2 so that every commitment of two or
+    more scalars, the generator lists and every sumcheck run the device
+    path: Bulletproofs' Mini on BN254 and curve25519 (`random.Random(77)`,
+    tests/test_bulletproofs.py), Hyrax's 4 instances (`random.Random(42)`,
+    tests/test_hyrax.py), Libra's reference circuit plain and zk
+    (`random.Random(88)`, tests/test_libra.py). On a card each is verified
+    and a changed input or output refused. Returns the proofs' ark bytes
+    (hex; the plain Libra proof's fields)."""
+    from ckb_zkp_tpu_torch.circuits import Mini
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import msm, sumcheck
+    from ckb_zkp_tpu_torch.schemes import bulletproofs as bp
+    from ckb_zkp_tpu_torch.schemes import hyrax, libra
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import ark_encode
+
+    check = device != "cpu"
+    layers = [list(g) for g in GKR_LAYERS]
+    saved = (msm.FIXED_BASE_MSM_MIN, sumcheck.DEVICE_SUMCHECK_MIN)
+    msm.FIXED_BASE_MSM_MIN = sumcheck.DEVICE_SUMCHECK_MIN = 2
+    out, verdicts = {}, []
+    try:
+        if "bulletproofs" in schemes:
+            for name in ("bn254", "curve25519"):
+                curve = spartan_curve(name)
+                gens, r1cs, proof = bp.create_random_proof(curve, Mini.power_on(2, 3, 10),
+                                                           random.Random(77), device)
+                out[f"bulletproofs_{name}"] = ark_encode(curve, gens).hex() + ark_encode(
+                    curve, proof).hex()
+                if check:
+                    verdicts += [bp.verify_proof(curve, gens, proof, r1cs, [x]) for x in (10, 11)]
+        curve = get_curve("bls12_381")
+        p = curve.fr.modulus
+        if "hyrax" in schemes:
+            rng = random.Random(42)
+            W = [[rng.randrange(p) for _ in range(8)] for _ in range(4)]
+            inputs = [[rng.randrange(p) for _ in range(8)] for _ in range(4)]
+            params = hyrax.Parameters.new(curve, rng, 8, device)
+            circuit = hyrax.Circuit(8, 8, layers)
+            h = (circuit.circuit_to_hash(curve), params.param_to_hash())
+            proof, outputs = hyrax.HyraxProof.prover(params, W, inputs, circuit, *h, 4, rng,
+                                                     device)
+            out["hyrax"] = ark_encode(curve, params).hex() + ark_encode(curve, proof).hex()
+            if check:
+                verdicts += [proof.verify(params, o, inputs, circuit, *h, device)
+                             for o in (outputs, _changed(outputs))]
+        if "libra" in schemes:
+            inputs, witnesses = list(range(1, 9)), list(range(9, 17))
+            circuit = libra.Circuit(8, 8, layers)
+            chash = circuit.circuit_to_hash(curve)
+            plain, output = libra.LinearGKRProof.prover(curve, circuit, inputs, witnesses, chash,
+                                                        device)
+            out["libra_plain"] = [[layer.proof_phase_one.polys, layer.proof_phase_one
+                                   .poly_value_at_r, layer.proof_phase_two.polys,
+                                   layer.proof_phase_two.poly_value_at_r]
+                                  for layer in plain.proofs]
+            rng = random.Random(88)
+            params = libra.Parameters.new(curve, rng, 8, device)
+            h = (chash, params.param_to_hash())
+            proof, output = libra.ZKLinearGKRProof.prover(params, circuit, inputs, witnesses,
+                                                          *h, rng, device)
+            out["libra_zk"] = ark_encode(curve, params).hex() + ark_encode(curve, proof).hex()
+            if check:
+                verdicts += [plain.verify(curve, circuit, o, witnesses + inputs, chash, device)
+                             for o in (output, _changed(output))]
+                verdicts += [proof.verify(params, circuit, o, inputs, *h, device)
+                             for o in (output, _changed(output))]
+        if verdicts != [True, False] * (len(verdicts) // 2):
+            raise AssertionError(f"DL Mini proofs on {device}: verdicts {verdicts}")
+    finally:
+        msm.FIXED_BASE_MSM_MIN, sumcheck.DEVICE_SUMCHECK_MIN = saved
+    return out
+
+
+def start_dl_mini_cpu():
+    """`dl_mini_proofs` on the CPU (the plain versions) in a child process
+    (torch on 2 threads), started after the timed kernel rows.
+    `finish_mini_cpu` reads its proofs."""
+    import subprocess
+
+    code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps(chip_smoke.dl_mini_proofs('cpu')))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_dl(card: str, cpu_child) -> dict:
+    """Bulletproofs, Hyrax and Libra on the card: the runs of DL_RUNS. (g)
+    runs in this process, its zk prove alone under the profiler; once that
+    prove is done, (d), (e), (f) and (g)'s plain half start in child
+    processes beside the rest of (g), after which this process makes the
+    card's Mini proofs (thresholds at 2; not at the children's start, where
+    their thousands of small launches would share the card with (e)'s
+    commitments). The Mini bytes must equal the CPU child's. Every run must make device MSMs, (f) and
+    (g) device sumcheck rounds; (d) must launch K1, K2, K5 and K6, (e) K1
+    at 2^255 - 19, (f) and (g) the 12-word K2, K5 and K6 and Fr's K1.
+    Returns the runs, the 8-word and 12-word K1-K6 launches of the four
+    together and (e)'s K1 launches by field."""
+    import torch
+
+    t0 = time.perf_counter()
+    children: dict = {}
+
+    def start_children():
+        children.update({label: start_dl_run(card, label)
+                         for label in ("d", "e", "f", "g_plain")})
+
+    try:
+        runs = {"g": dl_run_of(card, "g", profile=True, on_proved=start_children)}
+        torch.cuda.empty_cache()
+        g_s = time.perf_counter() - t0
+        got = dl_mini_proofs(DEVICE)
+        mini_s = time.perf_counter() - t0 - g_s
+        for label in ("d", "e", "f", "g_plain"):
+            runs[label] = finish_run(children[label], label)
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    wall = time.perf_counter() - t0
+    for label, run in runs.items():
+        c = run["counts"]
+        if (c["msm_device"] <= 0 and label != "g_plain") or (
+                label in ("f", "g", "g_plain") and c["sumcheck_device"] <= 0):
+            raise AssertionError(f"DL run ({label}) made no device MSM, or no device "
+                                 f"sumcheck: {c}")
+    need = {"d": [k for k in ("mont_mul", "scan_prefix_madd", "rcb_add", "rcb_fixed_base")
+                  if runs["d"]["launches"][k] <= 0],
+            "e": [k for k in ("curve25519_fq",) if runs["e"]["k1"].get(k, 0) <= 0]}
+    for label in "fg":
+        need[label] = [f"{k}_nw12" for k in ("scan_prefix_madd", "rcb_add", "rcb_fixed_base")
+                       if runs[label]["wide"][k] <= 0]
+        need[label] += [k for k in ("bls12_381.Fr",) if runs[label]["k1"].get(k, 0) <= 0]
+    if any(need.values()):
+        raise AssertionError(f"DL kernels not launched: {need}")
+    want = finish_mini_cpu(cpu_child)
+    if got != want:
+        raise AssertionError("the DL Mini proofs on the card differ from the CPU ones: "
+                             f"{[k for k in got if got[k] != want.get(k)]}")
+    log(f"dl mini (thresholds at 2): Bulletproofs on bn254 and curve25519, Hyrax, Libra "
+        f"plain and zk: the card's proofs equal the port's CPU ones; all verify, changed "
+        f"inputs and outputs refused; (g) {g_s:.3f} s wall (its zk prove alone), then the "
+        f"card's Mini proofs {mini_s:.3f} s, the phase {wall:.3f} s wall [{card}]")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in DL_KERNELS}
+    wide = {k: sum(r["wide"][k] for r in runs.values()) for k in DL_KERNELS}
+    return {"runs": runs, "launches": launches, "wide": wide, "k1_25519": runs["e"]["k1"],
+            "g_s": g_s, "wall_s": wall}
 
 
 def phase_probes(results: dict, log2: int) -> dict:
@@ -3275,16 +3802,17 @@ def run_phases(args, children: list) -> int:
                 w in line for w in ("registers", "spill", "Function properties")):
             log(f"nvcc: {line.strip()}")
     results: dict = {}
-    cpu_child = start_mini_cpu()
-    children.append(cpu_child)
 
     t0 = time.perf_counter()
     levels, team, fixed, loop_launches, jac_fixed, jac_shapes, jac_totals = phase_kernels(
         results, args.log2)
     phase_spartan_kernels(results)
-    # the Spartan Mini proofs from the plain versions, after the timed kernel rows
+    # the CPU children (the Mini proofs from the plain versions), after the
+    # timed kernel rows: Marlin and PLONK, Spartan, Bulletproofs/Hyrax/Libra
+    cpu_child = start_mini_cpu()
     spartan_child = start_spartan_mini("cpu")
-    children.append(spartan_child)
+    dl_child = start_dl_mini_cpu()
+    children += [cpu_child, spartan_child, dl_child]
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
     log(f"fixed base (K6 at the setup's width 2^{args.log2}, {card}): {json.dumps(fixed)}")
@@ -3306,13 +3834,14 @@ def run_phases(args, children: list) -> int:
     t4 = time.perf_counter()
     mar = phase_marlin(card, min(MARLIN_LOG2, args.log2))
     torch.cuda.empty_cache()
-    cpu_proofs = phase_marlin_mini(card, cpu_child)
     kzg_wide = phase_kzg_wide(card, min(KZG_WIDE_LOG2, args.log2))
     torch.cuda.empty_cache()
     log(f"marlin phase seconds: {json.dumps(mar['seconds'])} [{card}]")
     t5 = time.perf_counter()
     plonk = phase_plonk(card, min(PLONK_LOG2, args.log2))
     torch.cuda.empty_cache()
+    # the CPU child's Mini proofs, read here, where it has had the Marlin and PLONK phases
+    cpu_proofs = phase_marlin_mini(card, cpu_child)
     phase_plonk_reference(card, cpu_proofs["plonk"])
     log(f"plonk phase seconds: {json.dumps(plonk['seconds'])} [{card}]")
     t6 = time.perf_counter()
@@ -3327,13 +3856,18 @@ def run_phases(args, children: list) -> int:
     log(f"spartan phase seconds: {json.dumps({k: r['seconds'] for k, r in spartan['runs'].items()})}"
         f" [{card}]")
     t8 = time.perf_counter()
+    dl = phase_dl(card, dl_child)
+    torch.cuda.empty_cache()
+    log(f"dl phase seconds: {json.dumps({k: r['seconds'] for k, r in dl['runs'].items()})}"
+        f" [{card}]")
+    t8d = time.perf_counter()
     probes = phase_probes(results, args.log2 + 1)
     t9 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
         f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
         f"plonk {t6 - t5:.3f}, asvc {t6s - t6:.3f}, bls12_381 {t7 - t6s:.3f}, "
-        f"spartan {t8 - t7:.3f}, "
-        f"probes {t9 - t8:.3f} [{card}]")
+        f"spartan {t8 - t7:.3f}, dl {t8d - t8:.3f}, "
+        f"probes {t9 - t8d:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -3356,6 +3890,7 @@ def run_phases(args, children: list) -> int:
                 "plonk_launches": plonk["launches"][name]} if name in MARLIN_KERNELS else {})
             | ({"spartan_launches": spartan["launches"][name]} if name in SPARTAN_KERNELS
                else {})
+            | ({"dl_launches": dl["launches"][name]} if name in DL_KERNELS else {})
             | ({"asvc_launches": asvc_run["fr_mont_mul"]} if name == "mont_mul" else {}))
     for row, name in WIDE_ROWS.items():
         r = results[row]
@@ -3373,7 +3908,8 @@ def run_phases(args, children: list) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name]}
+            "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name],
+            "dl_launches": dl["wide"][name]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     for row, field_name in (("mont_mul_25519_fq", "curve25519_fq"),
                             ("mont_mul_25519_fr", "curve25519_fr")):
@@ -3387,7 +3923,9 @@ def run_phases(args, children: list) -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            | ({"dl_launches": dl["k1_25519"].get(field_name, 0)}
+               if row == "mont_mul_25519_fq" else {}))  # run (e)'s
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

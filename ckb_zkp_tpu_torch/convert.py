@@ -6,11 +6,12 @@ port's: the same layouts as int32 tensors on `device`, and host points
 rebuilt as the port's own classes (`host/curves.py`). Both provers then
 compute from the same key. `srs_from_reference` does the same for a KZG10
 `UniversalParams` (Marlin's and PLONK's SRS), `asvc_params_from_reference`
-for aSVC's `Parameters`. `spartan_nizk_params_from_reference` and
-`spartan_snark_setup_from_reference` carry Spartan's parameters, R1CS
-instance and SPARK encoding across field by field (host ints and points,
-no device), so that a port proof over them can be compared with the
-reference's.
+for aSVC's `Parameters`. `spartan_nizk_params_from_reference`,
+`spartan_snark_setup_from_reference`, `bulletproofs_generators_from_reference`,
+`hyrax_params_from_reference` and `libra_params_from_reference` carry the
+discrete-log schemes' parameters (Spartan's R1CS instance and SPARK
+encoding too) across field by field (host ints and points, no device), so
+that a port proof over them can be compared with the reference's.
 """
 
 from __future__ import annotations
@@ -105,27 +106,32 @@ def _port_curve(curve):
     return Curve25519() if curve.name == "curve25519" else get_curve(curve.name)
 
 
-def _spartan_value(v):
-    """A reference Spartan value -> the port's: each dataclass as the port's
-    class of the same name, field by field; points as the port's point
+def _port_value(v, modules):
+    """A reference value of a discrete-log scheme -> the port's: each
+    dataclass as the class of the same name in the first of the port's
+    `modules` that has one, field by field; points as the port's point
     classes; curves as the port's registry entry; lists, tuples and ints
     as they are."""
-    from .schemes.spartan import common, nizk, snark
-
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         name = type(v).__name__
         if name == "RistrettoPoint":
             return RistrettoPoint(v.X, v.Y, v.Z, v.T)
         if name in ("PairingCurve", "Curve25519"):
             return _port_curve(v)
-        cls = next(getattr(m, name) for m in (common, nizk, snark) if hasattr(m, name))
-        return cls(**{f.name: _spartan_value(getattr(v, f.name))
+        cls = next(getattr(m, name) for m in modules if hasattr(m, name))
+        return cls(**{f.name: _port_value(getattr(v, f.name), modules)
                       for f in dataclasses.fields(v)})
     if type(v).__name__ == "AffinePoint":
         return point_from_reference(v)
     if isinstance(v, (list, tuple)):
-        return type(v)(_spartan_value(x) for x in v)
+        return type(v)(_port_value(x, modules) for x in v)
     return v
+
+
+def _spartan_value(v):
+    from .schemes.spartan import common, nizk, snark
+
+    return _port_value(v, (common, nizk, snark))
 
 
 def spartan_nizk_params_from_reference(params, r1cs):
@@ -138,3 +144,28 @@ def spartan_snark_setup_from_reference(setup):
     """The reference's Spartan `SnarkSetup` (params, r1cs, encode,
     encode_commit) -> the port's."""
     return _spartan_value(setup)
+
+
+def bulletproofs_generators_from_reference(gens):
+    """The reference's Bulletproofs `Generators` -> the port's."""
+    from .schemes.bulletproofs import arithmetic_circuit
+
+    return _port_value(gens, (arithmetic_circuit,))
+
+
+def hyrax_params_from_reference(params):
+    """The reference's Hyrax `Parameters` -> the port's."""
+    from .schemes.hyrax import params as hyrax_params
+    from .schemes.spartan import common
+
+    return _port_value(params, (hyrax_params, common))
+
+
+def libra_params_from_reference(params):
+    """The reference's Libra `Parameters` -> the port's (Libra's own class,
+    Hyrax's parts)."""
+    from .schemes.hyrax import params as hyrax_params
+    from .schemes.libra import zk_linear_gkr
+    from .schemes.spartan import common
+
+    return _port_value(params, (zk_linear_gkr, hyrax_params, common))

@@ -61,6 +61,15 @@ class Stages:
         self.out[name] = now - self.t
         self.t = now
 
+    def add(self, name: str):
+        """`mark`, adding to the seconds `name` already holds (a stage
+        that runs once a layer)."""
+        if self.out is None:
+            return
+        before = self.out.get(name, 0.0)
+        self.mark(name)
+        self.out[name] += before
+
 
 def _fit_h(h_can, rows: int):
     """The h scalars cut to `rows`, the keys' h_query width. Padded keys

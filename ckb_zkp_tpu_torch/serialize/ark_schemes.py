@@ -4,18 +4,20 @@ Port of the reference's `serialize/ark_schemes.py`. The codec machinery
 (the spec language, `ArkSchemeCodec`'s walk, `ark_encode`/`ark_decode`) is
 the reference's word for word, with two changes:
 
-- `_schemas()` registers only the schemes the port has: KZG10's opening
+- `_schemas()` registers the schemes the port has: KZG10's opening
   proof, Marlin's commitments, index info, keys and proof (PLONK's bytes,
-  `schemes/plonk/serialize.py`, are built from these) and Spartan's
-  parameters, R1CS instance, SPARK encoding and proofs (NIZK and SNARK).
-  Each other discrete-log scheme (Bulletproofs, Hyrax, Libra) adds its
-  block when its slice comes. `PT` is the pairing curve's G1, or for
-  curve25519 the 32-byte Ristretto encoding; the Edwards curves' points
-  come with the curve registry.
+  `schemes/plonk/serialize.py`, are built from these), Spartan's
+  parameters, R1CS instance, SPARK encoding and proofs (NIZK and SNARK),
+  Bulletproofs' generators, dense R1CS and proofs, the setup parameters
+  and sigma protocols that Libra and Hyrax share, Libra's zk-GKR proof
+  and Hyrax's proof. `PT` is the pairing curve's G1, or for curve25519
+  the 32-byte Ristretto encoding; the Edwards curves' points come with
+  the curve registry.
 - The port's Marlin keys carry a device: decoding gives them the codec's
   `device` (default "cuda"). The device is never written into the bytes.
-- Two fast paths with the generic walk's bytes and errors, for Spartan's
-  keys at 2^16-2^20 constraints: the R1CS matrices (`MATRIX`) in one pass
+- Three fast paths with the generic walk's bytes and errors: Spartan's
+  R1CS matrices (`MATRIX`) and the dense Fr matrices (`DENSE`, the rows of
+  Bulletproofs' R1CS, 3 n (n + 2) elements for n constraints) in one pass
   over the bytes, and a vector of DEVICE_DECODE_MIN or more compressed G1
   points with its square roots as one batch on the codec's `device`
   (`_g1_read_many`), where `G1Codec.read` pays two Python-int
@@ -62,6 +64,8 @@ ENTRY = ("entry",)
 U32MAP_FR = ("u32map", FR)
 # an R1CS matrix, Vec<Vec<(Fr, Index)>> (spartan/src/r1cs.rs)
 MATRIX = ("vec", ("vec", ENTRY))
+# a dense Fr matrix, Vec<Vec<Fr>> (bulletproofs' CL/CR/CO)
+DENSE = ("vec", ("vec", FR))
 # compressed G1 points in a vector from which their square roots run on the
 # codec's device as one batch
 DEVICE_DECODE_MIN = 1 << 10
@@ -174,6 +178,51 @@ class ArkSchemeCodec:
         buf.seek(o)
         return rows
 
+    def _dense_bytes(self, m) -> bytes:
+        """`DENSE`'s bytes in one pass (the walk's: the row count, then each
+        row's length and its elements), zero elements as zero bytes."""
+        p, nb = self.fr.spec.modulus, self.fr.nbytes
+        parts = [len(m).to_bytes(8, "little")]
+        for row in m:
+            raw = bytearray(len(row) * nb)
+            for j, v in enumerate(row):
+                if v:
+                    raw[j * nb : (j + 1) * nb] = (v % p).to_bytes(nb, "little")
+            parts += (len(row).to_bytes(8, "little"), raw)
+        return b"".join(parts)
+
+    def _dense_read(self, buf: io.BytesIO):
+        """`DENSE` from the buffer in one pass over its bytes, with the
+        walk's results: a short u64 reads as what is there, and a row's
+        first non-canonical element before its first short one raises
+        "non-canonical", else the short one "truncated"."""
+        import numpy as np
+
+        data = buf.getvalue()
+        end, o = len(data), buf.tell()
+        p, nb = self.fr.spec.modulus, self.fr.nbytes
+        frm = int.from_bytes
+        n = frm(data[o : o + 8], "little")
+        o = min(o + 8, end)
+        rows = []
+        for _ in range(n):
+            k = frm(data[o : o + 8], "little")
+            o = min(o + 8, end)
+            full = min(k, (end - o) // nb)
+            raw = np.frombuffer(data, np.uint8, full * nb, o).reshape(full, nb)
+            row = [0] * full
+            for j in raw.any(axis=1).nonzero()[0].tolist():
+                v = frm(data[o + j * nb : o + (j + 1) * nb], "little")
+                if v >= p:
+                    raise ValueError("non-canonical field element")
+                row[j] = v
+            if full < k:
+                raise ValueError("truncated field element")
+            o += k * nb
+            rows.append(row)
+        buf.seek(o)
+        return rows
+
     def _g1_read_many(self, buf: io.BytesIO, n: int) -> list:
         """n compressed G1 points, as `G1Codec.read` gives them: the
         coordinates and flags read on the host, y = rhs^((q + 1) / 4) for
@@ -207,6 +256,8 @@ class ArkSchemeCodec:
     def _write(self, buf: io.BytesIO, spec, v) -> None:
         if spec == MATRIX:
             buf.write(self._matrix_bytes(v))
+        elif spec == DENSE:
+            buf.write(self._dense_bytes(v))
         elif spec == FR:
             buf.write(self.fr.to_bytes(v))
         elif spec == PT:
@@ -260,6 +311,8 @@ class ArkSchemeCodec:
     def _read(self, buf: io.BytesIO, spec):
         if spec == MATRIX:
             return self._matrix_read(buf)
+        if spec == DENSE:
+            return self._dense_read(buf)
         if spec in (("vec", G1), ("vec", PT)) and not self.is_ristretto:
             n = read_u64(buf)
             if n >= DEVICE_DECODE_MIN:
@@ -340,6 +393,12 @@ class ArkSchemeCodec:
 def _schemas():
     """class -> (ordered (name, spec) fields, extras(ctx) -> ctor kwargs)."""
     from ..schemes import kzg10
+    from ..schemes.bulletproofs import arithmetic_circuit as bp_ac
+    from ..schemes.bulletproofs import inner_product_proof as bp_ipp
+    from ..schemes.hyrax import hyrax_proof as hy
+    from ..schemes.hyrax import params as sigma  # shared by libra + hyrax
+    from ..schemes.hyrax import zk_sumcheck as hy_zk
+    from ..schemes.libra import zk_linear_gkr as li
     from ..schemes.marlin import ahp as ma_ahp
     from ..schemes.marlin import marlin as ma
     from ..schemes.marlin import pc as ma_pc
@@ -622,6 +681,171 @@ def _schemas():
             ("r1cs_satisfied_proof", S(sp.R1CSSatProof)),
             ("matrix_evals", Tup(FR, FR, FR)),
             ("r1cs_evals_proof", S(sp_sn.R1CSEvalsProof)),
+        ],
+    )
+
+    # ---- bulletproofs (arithmetic_circuit.rs:104-183, inner_product_proof.rs:14-20) ----
+    add(
+        bp_ac.Generators,
+        [
+            ("g_vec_N", Vec(PT)),
+            ("h_vec_N", Vec(PT)),
+            ("g", PT),
+            ("h", PT),
+            ("u", PT),
+            ("n", U64),
+            ("N", U64),
+            ("k", U64),
+            ("n_w", U64),
+        ],
+    )
+    add(  # the _T maps are derived from the dense rows (matrix_to_map)
+        bp_ac.R1csCircuit,
+        [
+            ("CL", DENSE),
+            ("CR", DENSE),
+            ("CO", DENSE),
+            ("~CL_T", U32MAP_FR),
+            ("~CR_T", U32MAP_FR),
+            ("~CO_T", U32MAP_FR),
+        ],
+    )
+    add(
+        bp_ipp.Proof,
+        [("L_vec", Vec(PT)), ("R_vec", Vec(PT)), ("a", FR), ("b", FR)],
+    )
+    add(
+        bp_ac.Proof,
+        [
+            ("A_I", PT),
+            ("A_O", PT),
+            ("A_W", PT),
+            ("S", PT),
+            ("T", TDICT),  # T_2,T_3,T_5..T_10 individual fields in the reference
+            ("mu", FR),
+            ("tau_x", FR),
+            ("l_x", Vec(FR)),
+            ("r_x", Vec(FR)),
+            ("t_x", FR),
+            ("IPP", S(bp_ipp.Proof)),
+            ("IPP_P", PT),
+        ],
+    )
+
+    # ---- libra + hyrax setup params (libra/src/params.rs:11-14,
+    # hyrax/src/params.rs:11-14: sc_params then pc_params) ----
+    add(
+        sigma.SumCheckCommitmentSetupParameters,
+        [("gen_1", MC), ("gen_3", MC), ("gen_4", MC)],
+    )
+    for _params_cls in (sigma.Parameters, li.Parameters):
+        add(
+            _params_cls,
+            [
+                ("sc_params", S(sigma.SumCheckCommitmentSetupParameters)),
+                ("pc_params", PC),
+            ],
+            extras=curve_extra,
+        )
+
+    # ---- libra + hyrax shared sigma protocols (libra/src/commitment.rs:12-486,
+    # hyrax/src/commitment.rs — identical layouts) ----
+    add(sigma.EqProof, [("alpha", PT), ("z", FR)])
+    add(
+        sigma.ProductProof,
+        [
+            ("comm_alpha", PT),
+            ("comm_beta", PT),
+            ("comm_delta", PT),
+            ("z", Vec(FR)),
+        ],
+    )
+    add(sigma.BulletReduceProof, [("l_vec", Vec(PT)), ("r_vec", Vec(PT))])
+    add(
+        sigma.LogDotProductProof,
+        [
+            ("bullet_reduce_proof", S(sigma.BulletReduceProof)),
+            ("delta", PT),
+            ("beta", PT),
+            ("z1", FR),
+            ("z2", FR),
+        ],
+    )
+
+    # ---- libra zk-GKR (libra/src/libra_zk_linear_gkr.rs:17-39, sumcheck.rs:176-436) ----
+    add(
+        li.SumCheckEvalProof,
+        [
+            ("d_commit", PT),
+            ("dot_cd_commit", PT),
+            ("z", Vec(FR)),
+            ("z_delta", FR),
+            ("z_beta", FR),
+        ],
+    )
+    add(
+        li.ZKSumCheckProof,
+        [
+            ("comm_polys", Vec(PT)),
+            ("comm_evals", Vec(PT)),
+            ("proofs", Vec(S(li.SumCheckEvalProof))),
+        ],
+    )
+    add(
+        li.ZKLayerProof,
+        [
+            ("proof_phase_one", S(li.ZKSumCheckProof)),
+            ("proof_phase_two", S(li.ZKSumCheckProof)),
+            ("comm_x", PT),
+            ("comm_y", PT),
+            ("comm_z", PT),
+            ("prod_proof", S(sigma.ProductProof)),
+            ("eq_proof", S(sigma.EqProof)),
+        ],
+    )
+    add(
+        li.ZKLinearGKRProof,
+        [
+            ("comm_witness", Vec(PT)),
+            ("proofs", Vec(S(li.ZKLayerProof))),
+            ("prod_proof0", S(sigma.LogDotProductProof)),
+            ("comm_y0", PT),
+            ("eq_proof0", S(sigma.EqProof)),
+            ("prod_proof1", S(sigma.LogDotProductProof)),
+            ("comm_y1", PT),
+            ("eq_proof1", S(sigma.EqProof)),
+        ],
+    )
+
+    # ---- hyrax (hyrax/src/hyrax_proof.rs:16-26, zk_sumcheck_proof.rs:18-32) ----
+    add(
+        hy_zk.ZkSumcheckProof,
+        [
+            ("prod_proof", S(sigma.ProductProof)),
+            ("comm_a0", PT),
+            ("comm_c", PT),
+            ("comm_x", PT),
+            ("comm_y", PT),
+            ("comm_z", PT),
+            ("comm_polys", Vec(PT)),
+            ("comm_evals", Vec(PT)),
+            ("comm_deltas", Vec(PT)),
+            ("z_vec", Vec(FR)),
+            ("z_delta_vec", Vec(FR)),
+            ("zc", FR),
+        ],
+    )
+    add(
+        hy.HyraxProof,
+        [
+            ("comm_witness", Vec(PT)),
+            ("proofs", Vec(S(hy_zk.ZkSumcheckProof))),
+            ("prod_proof0", S(sigma.LogDotProductProof)),
+            ("comm_y0", PT),
+            ("eq_proof0", S(sigma.EqProof)),
+            ("prod_proof1", S(sigma.LogDotProductProof)),
+            ("comm_y1", PT),
+            ("eq_proof1", S(sigma.EqProof)),
         ],
     )
 

@@ -35,7 +35,10 @@ EXACT_COPIES = ("host/curves.py", "host/field.py", "host/pairing.py", "host/towe
                 "schemes/errors.py", "schemes/marlin/fs_rng.py",
                 "schemes/plonk/composer.py", "schemes/plonk/__init__.py",
                 "schemes/plonk/serialize.py", "host/ristretto.py",
-                "schemes/spartan/polynomial.py", "schemes/spartan/__init__.py")
+                "schemes/spartan/polynomial.py", "schemes/spartan/__init__.py",
+                "schemes/bulletproofs/common.py", "schemes/bulletproofs/__init__.py",
+                "schemes/hyrax/circuit.py", "schemes/hyrax/__init__.py",
+                "schemes/libra/circuit.py", "schemes/libra/__init__.py")
 
 
 @pytest.mark.parametrize("path", EXACT_COPIES)

@@ -6,7 +6,9 @@ at 2^12 on the card against the CPU, and the PLONK and aSVC phases at
 2^13; K1 at curve25519's moduli, the Spartan Mini proofs (NIZK and SNARK,
 BN254 and curve25519, the device thresholds at 2) on the card against
 the CPU, and chip_smoke's Spartan runs at a small size with the thresholds
-patched down. Marked `cuda`; without a card they skip."""
+patched down; the reference tests' Bulletproofs (BN254 and curve25519),
+Hyrax and Libra (plain and zk) proofs with the device thresholds at 2 on
+the card against the CPU. Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -455,3 +457,13 @@ def test_spartan_runs_small_with_the_device_paths_patched_on(smoke, monkeypatch)
                                                          "rcb_add"))
         else:
             assert run["k1"]["curve25519_fq"] > 0 and run["k1"]["curve25519_fr"] > 0
+
+
+@pytest.mark.parametrize("scheme", ["bulletproofs", "hyrax", "libra"])
+def test_dl_mini_proofs_on_the_card_equal_the_cpu(smoke, scheme):
+    """The reference tests' proofs of `scheme` (Bulletproofs' Mini on BN254
+    and curve25519, Hyrax's 4 instances, Libra's reference circuit plain
+    and zk) with FIXED_BASE_MSM_MIN and DEVICE_SUMCHECK_MIN at 2: the
+    card's proofs verify, refuse a changed input or output, and their
+    bytes equal the CPU's (the plain versions; minutes of CPU)."""
+    assert smoke.dl_mini_proofs("cuda", (scheme,)) == smoke.dl_mini_proofs("cpu", (scheme,))

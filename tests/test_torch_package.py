@@ -24,6 +24,11 @@ from ckb_zkp_tpu_torch.schemes.plonk import Plonk
 from ckb_zkp_tpu_torch.schemes.plonk.plonk import VerifierKey as PlonkVerifierKey
 from ckb_zkp_tpu_torch.schemes.spartan import common as sp_common
 from ckb_zkp_tpu_torch.schemes.spartan import nizk, snark
+from ckb_zkp_tpu_torch.schemes.bulletproofs import arithmetic_circuit as bp_ac
+from ckb_zkp_tpu_torch.schemes.bulletproofs import inner_product_proof as bp_ipp
+from ckb_zkp_tpu_torch.schemes.hyrax import hyrax_proof, zk_sumcheck
+from ckb_zkp_tpu_torch.schemes.hyrax import params as hy_params
+from ckb_zkp_tpu_torch.schemes.libra import linear_gkr, zk_linear_gkr
 from ckb_zkp_tpu_torch.serialize import ark_schemes
 
 PKG_DIR = os.path.dirname(ckb_zkp_tpu_torch.__file__)
@@ -46,6 +51,8 @@ import ckb_zkp_tpu_torch.serialize.ark_schemes, ckb_zkp_tpu_torch.convert
 import ckb_zkp_tpu_torch.schemes.spartan, ckb_zkp_tpu_torch.host.ristretto
 import ckb_zkp_tpu_torch.ops.ristretto_device, ckb_zkp_tpu_torch.ops.sumcheck
 import ckb_zkp_tpu_torch.ops.edwards
+import ckb_zkp_tpu_torch.schemes.bulletproofs, ckb_zkp_tpu_torch.schemes.hyrax
+import ckb_zkp_tpu_torch.schemes.libra
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -174,6 +181,20 @@ def test_source_scan_rejects_the_alias_loader():
     (msm.generator_multiples, "device"), (sp_common.poly_commitment_parameters, "device"),
     (sp_common.r1cs_satisfied_parameters, "device"), (nizk.generate_setup_parameters, "device"),
     (snark.generate_setup_snark_parameters, "device"),
+    (bp_ac.create_random_proof, "device"), (bp_ac.prove, "device"), (bp_ipp.prove, "device"),
+    (contracts.mini_bulletproofs_verifier, "device"), (hy_params.Parameters.new, "device"),
+    (hy_params.EqProof.prover, "device"), (hy_params.EqProof.verify, "device"),
+    (hy_params.ProductProof.prover, "device"), (hy_params.ProductProof.verify, "device"),
+    (hy_params.LogDotProductProof.reduce_prover, "device"),
+    (hy_params.LogDotProductProof.reduce_verifier, "device"),
+    (zk_sumcheck.ZkSumcheckProof.prover, "device"), (zk_sumcheck.ZkSumcheckProof.verify, "device"),
+    (hyrax_proof.HyraxProof.prover, "device"), (hyrax_proof.HyraxProof.verify, "device"),
+    (linear_gkr.DeviceLayer.__init__, "device"), (linear_gkr.LinearGKRProof.prover, "device"),
+    (linear_gkr.LinearGKRProof.verify, "device"), (zk_linear_gkr.Parameters.new, "device"),
+    (zk_linear_gkr.ZKLinearGKRProof.prover, "device"),
+    (zk_linear_gkr.ZKLinearGKRProof.verify, "device"),
+    (contracts.mini_libra_zk_linear_gkr_verifier, "device"),
+    (contracts.mini_hyrax_zk_linear_gkr_verifier, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
