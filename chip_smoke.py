@@ -124,7 +124,21 @@ device sumcheck in (f) and (g)), K1 by field and the K1-K6 launches (the
 2^255 - 19 in (e), the 12-word K2, K5 and K6 and Fr's K1 in (f) and (g);
 the Mini proofs of the reference tests with both thresholds at 2 on the
 card against a CPU child's bytes (`dl_launches` in the K1-K6, the
-`_nw12` and the `mont_mul_25519_fq` rows); (7)
+`_nw12` and the `mont_mul_25519_fq` rows); the CLI (`phase_cli`, after
+`phase_dl`): `python3 -m ckb_zkp_tpu_torch.cli.main` setup, prove and
+verify of Groth16 BN254 hash, each a process, exit codes 0, 0, 0 and 1
+for a changed public input (`cli_chain`, in a thread), beside
+`cli_runs` and `cbmt_run`: `main(argv)` round trips of CLI_CASES (tests/test_cli.py's
+cases, tests/test_jubjub.py's Edwards case, Groth16 over BLS12-381), each
+verified and refused after a changed public input, each command timed and
+its launches counted (the pairing schemes' kernels required, CLI_NEEDS;
+`cli_launches` in every row), every setup file and proof JSON equal to a
+CPU child's (`start_cli_cpu`, started after the timed kernel rows) for the
+same seeds; the native C++ verifiers on the CLI's Groth16 and Marlin
+cells (0, 2, 1, as the contract verifiers); and Groth16 over BN254 of a
+SHA-256 CBMT membership circuit (5 lemmas, a 32-leaf tree, `cbmt_run`,
+after `cli_runs`), verified and refused with a flipped root bit, its
+setup launching K6 and its prove K1-K5; (7)
 BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
@@ -3467,6 +3481,340 @@ def phase_dl(card: str, cpu_child) -> dict:
             "g_s": g_s, "wall_s": wall}
 
 
+# ---- the CLI (phase_cli) ----
+# The in-process cases: (label, setup arguments or None, prove arguments).
+# tests/test_cli.py's round trips, tests/test_jubjub.py's Edwards case
+# (a setup over baby jubjub, a Bulletproofs proof over jubjub) and Groth16
+# over BLS12-381 Mini, which runs the 12-word kernels.
+CLI_MINI = ("2", "3", "10")
+CLI_PREIMAGE = "iamsecret"
+CLI_CASES = tuple(
+    (f"{s}-{c}-{k}", None if s == "bulletproofs" else (s, c, k), (s, c, k, *args))
+    for s, c, k, args in (
+        ("groth16", "bn254", "mini", CLI_MINI), ("groth16", "bn254", "hash", (CLI_PREIMAGE,)),
+        ("groth16", "bls12_381", "mini", CLI_MINI), ("marlin", "bn254", "mini", CLI_MINI),
+        ("plonk", "bn254", "mini", CLI_MINI), ("plonk", "bn254", "hash", (CLI_PREIMAGE,)),
+        ("bulletproofs", "bn254", "mini", CLI_MINI),
+        ("bulletproofs", "curve25519", "mini", CLI_MINI),
+        ("spartan_snark", "bn254", "mini", CLI_MINI),
+        ("spartan_nizk", "bn254", "mini", CLI_MINI),
+        ("spartan_nizk", "curve25519", "mini", CLI_MINI))
+) + (("edwards", ("spartan_nizk", "baby_jubjub", "mini"),
+      ("bulletproofs", "jubjub", "mini", *CLI_MINI)),)
+# the kernels each command must launch on the card ("_nw12": the 12-word
+# instance, `cuda_build.WIDE`). At these sizes the RCB MSM's block totals
+# stay under `_TOP_MAX`, so no K3; the CBMT circuit's prove launches it.
+# The discrete-log schemes' Mini rows stay under FIXED_BASE_MSM_MIN and
+# their sumchecks under DEVICE_SUMCHECK_MIN: they run on the host, as the
+# JAX package sends them, and launch nothing.
+_CLI_MSM = ("mont_mul", "scan_prefix_madd", "scan_total_add", "rcb_add")
+CLI_NEEDS = {
+    "groth16-bn254-mini": {"setup": ("mont_mul", "rcb_fixed_base"), "prove": _CLI_MSM},
+    "groth16-bn254-hash": {"setup": ("mont_mul", "rcb_fixed_base"), "prove": _CLI_MSM},
+    "groth16-bls12_381-mini": {
+        "setup": ("mont_mul_nw12", "rcb_fixed_base_nw12"),
+        "prove": tuple(f"{k}_nw12" for k in _CLI_MSM)},
+    "marlin-bn254-mini": {"setup": ("rcb_fixed_base", *_CLI_MSM), "prove": _CLI_MSM},
+    "plonk-bn254-mini": {"setup": ("rcb_fixed_base", *_CLI_MSM), "prove": _CLI_MSM},
+    "plonk-bn254-hash": {"setup": ("rcb_fixed_base", *_CLI_MSM), "prove": _CLI_MSM},
+}
+CBMT_LEMMAS = 5  # a 32-leaf tree
+
+
+def _changed_publics(proof_file: str) -> str:
+    """A copy of a proof JSON with its first public input's low bit flipped."""
+    with open(proof_file) as f:
+        payload = json.load(f)
+    raw = bytearray(bytes.fromhex(payload["params"]))
+    raw[0] ^= 1
+    payload["params"] = bytes(raw).hex()
+    out = os.path.join(os.path.dirname(proof_file), "changed-" + os.path.basename(proof_file))
+    with open(out, "w") as f:
+        json.dump(payload, f)
+    return out
+
+
+def _cli_launches() -> dict:
+    """This command's launches: the 8-word kernels by name, the 12-word
+    instances as "<name>_nw12"."""
+    from ckb_zkp_tpu_torch.ops import cuda_build
+
+    wide = cuda_build.WIDE
+    return ({k: v - wide.get(k, 0) for k, v in cuda_build.COUNTS.items()}
+            | {f"{k}_nw12": v for k, v in wide.items()})
+
+
+def cli_runs(device: str, labels=None) -> dict:
+    """The CLI_CASES of `labels` (default: all) through `cli.main(argv)`
+    with `--device device`, in a temporary directory: setup (seed 5), prove
+    (seed 6), verify, and verify of a copy with a changed public input,
+    which must exit 0, 0, 0 and 1. Returns each command's seconds, launches
+    and device calls (`device_calls_counted`), the launches of all of them,
+    their K1 launches by field, each file's size and sha256, and the
+    native verifiers' cells (Groth16 BN254 hash, Marlin BN254 Mini)."""
+    import glob
+    import hashlib
+    import io
+    import tempfile
+
+    import torch
+
+    from ckb_zkp_tpu_torch.cli.main import main
+    from ckb_zkp_tpu_torch.ops import cuda_build
+
+    out = {"seconds": {}, "launches": {}, "calls": {}, "files": {}, "cells": {}}
+    totals = dict.fromkeys(_cli_launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), k1_by_modulus() as k1:
+        for label, setup, prove in CLI_CASES:
+            if labels is not None and label not in labels:
+                continue
+            proof_file = f"proof_files/{'-'.join(prove[:3])}.proof.json"
+            steps = ([("setup", ["setup", *setup, "--seed", "5"], 0)] if setup else []) + [
+                ("prove", ["prove", *prove, "--seed", "6"], 0),
+                ("verify", ["verify", proof_file], 0), ("changed", None, 1)]
+            for cmd, argv, want in steps:
+                argv = argv or ["verify", _changed_publics(proof_file)]
+                cuda_build.reset_counts()
+                with device_calls_counted(spartan_sumchecks()) as calls, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    rc = main(["--device", device, *argv])
+                    if device != "cpu":
+                        torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                if rc != want:
+                    raise AssertionError(f"CLI {label} {cmd} on {device}: exit {rc}, not {want}")
+                key = f"{label} {cmd}"
+                launched = _cli_launches()
+                out["seconds"][key] = round(dt, 3)
+                out["launches"][key] = {k: v for k, v in launched.items() if v}
+                out["calls"][key] = {k: v for k, v in calls.items() if v}
+                for k, v in launched.items():
+                    totals[k] += v
+        for path in sorted(glob.glob("setup_files/*") + glob.glob("proof_files/*")):
+            with open(path, "rb") as f:
+                data = f.read()
+            out["files"][path] = [len(data), hashlib.sha256(data).hexdigest()]
+        for name, vk, proof_file in (
+                ("groth16", "setup_files/groth16-bn254-hash.vk",
+                 "proof_files/groth16-bn254-hash.proof.json"),
+                ("marlin", "setup_files/marlin-bn254-mini.vk",
+                 "proof_files/marlin-bn254-mini.proof.json")):
+            if os.path.exists(vk) and os.path.exists(proof_file):
+                with open(vk, "rb") as f, open(proof_file) as g:
+                    payload = json.load(g)
+                    out["cells"][name] = [f.read().hex(), payload["proof"], payload["params"]]
+    out["totals"] = totals
+    out["k1"] = dict(k1)
+    return out
+
+
+def start_cli_cpu():
+    """`cli_runs` on the CPU (the plain versions) in a child process (torch
+    on 2 threads), started after the timed kernel rows; `finish_mini_cpu`
+    reads its results."""
+    import subprocess
+
+    code = ("import json, sys, torch; torch.set_num_threads(2); sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps(chip_smoke.cli_runs('cpu')))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_chain() -> dict:
+    """`python3 -m ckb_zkp_tpu_torch.cli.main` setup, prove and verify of
+    Groth16 BN254 hash on the card (the default device), then verify of a
+    changed public input, each a process of its own in a temporary
+    directory: exit codes 0, 0, 0 and 1. Returns each one's seconds."""
+    import subprocess
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    base = [sys.executable, "-m", "ckb_zkp_tpu_torch.cli.main"]
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proof_file = os.path.join(tmp, "proof_files", "groth16-bn254-hash.proof.json")
+        for cmd, argv, want in (
+                ("setup", ["setup", "groth16", "bn254", "hash", "--seed", "5"], 0),
+                ("prove", ["prove", "groth16", "bn254", "hash", CLI_PREIMAGE, "--seed", "6"], 0),
+                ("verify", ["verify", proof_file], 0), ("changed", None, 1)):
+            argv = argv or ["verify", _changed_publics(proof_file)]
+            t0 = time.perf_counter()
+            res = subprocess.run(base + argv, cwd=tmp, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            seconds[cmd] = round(time.perf_counter() - t0, 3)
+            if res.returncode != want:
+                raise AssertionError(f"`python3 -m ckb_zkp_tpu_torch.cli.main {' '.join(argv)}` "
+                                     f"exited {res.returncode}, not {want}: {res.stderr[-3000:]}")
+    return seconds
+
+
+def native_checks(cells: dict) -> dict:
+    """The native C++ verifiers on the CLI's cells: the vk file, the proof
+    bytes and the publics give 0, a changed public input 2, a proof cut
+    short 1; the contract verifiers give the same codes; both self-tests 0.
+    No g++ on the card's host is a failure, not a skip."""
+    from ckb_zkp_tpu_torch import contracts, native
+
+    if not native.available():
+        raise AssertionError(f"the native verifiers did not build: {native._lib_err}")
+    if native.selftest() != 0 or native.marlin_selftest() != 0:
+        raise AssertionError("a native self-test failed")
+    verifiers = {
+        "groth16": (native.groth16_verify_bn254, contracts.universal_groth16_verifier),
+        "marlin": (native.marlin_verify_bn254,
+                   lambda *c: contracts.universal_marlin_verifier(*c, device=DEVICE))}
+    codes = {}
+    for name, (run_native, contract) in verifiers.items():
+        vk, proof, publics = (bytes.fromhex(x) for x in cells[name])
+        changed = bytes([publics[0] ^ 1]) + publics[1:]
+        cases = ((vk, proof, publics), (vk, proof, changed), (vk, proof[:-4], publics))
+        got = [run_native(*c) for c in cases]
+        want = [contract("bn254", *c) for c in cases]
+        if got != [0, 2, 1] or want != got:
+            raise AssertionError(f"{name}: native codes {got}, contract codes {want}")
+        codes[name] = got
+    return codes
+
+
+class Sha256Membership:
+    """merkle_tree_sha256.rs, as tests/test_examples.py:117-150 builds it on
+    the JAX package's gadgets: in-circuit CBMT membership of leaf `index`
+    under the SHA-256 gadget, merge = sha256(left || right); `leaves` None
+    gives the setup's shape (`n_lemmas` lemmas)."""
+
+    def __init__(self, p: int, index: int, leaves, n_lemmas: int):
+        self.p = p
+        self.index = index
+        self.leaves = leaves
+        self.n_lemmas = n_lemmas
+
+    def generate_constraints(self, cs) -> None:
+        from ckb_zkp_tpu_torch.gadgets import cbmt
+        from ckb_zkp_tpu_torch.gadgets import sha256 as sh
+
+        hasher = sh.AbstractHashSha256(self.p)
+        if self.leaves is not None:
+            tree = cbmt.build_merkle_tree(self.leaves, lambda a, b: sh.sha256_native(a + b))
+            proof = tree.build_proof(self.index)
+            root, leaf = tree.root(), self.leaves[self.index]
+            lemmas, tree_index = proof.lemmas, proof.index
+        else:
+            root = leaf = None
+            lemmas = [None] * self.n_lemmas
+            tree_index = (1 << self.n_lemmas) - 1 + self.index
+        n_root = sh.AbstractHashSha256Output.alloc_input(cs, root)
+        n_leaf = sh.AbstractHashSha256Output.alloc(cs, leaf)
+        lemma_outs = [sh.AbstractHashSha256Output.alloc(cs, v) for v in lemmas]
+        cbmt.MerkleProofGadget(tree_index, lemma_outs, hasher).set_membership(cs, n_root, n_leaf)
+
+
+def cbmt_run(card: str, n_lemmas: int = CBMT_LEMMAS) -> dict:
+    """Groth16 over BN254 on the card for the SHA-256 CBMT membership of
+    leaf 7 of a 2^n_lemmas-leaf tree: the synthesis (once: the setup reads
+    only the shape's matrices), setup and prove each timed, the proof
+    verified against the root's bits and refused with one root bit
+    flipped; the setup must launch K6 and the prove K1-K5."""
+    import torch
+
+    from ckb_zkp_tpu_torch.gadgets.sha256 import bytes_to_bits_be, sha256_native
+    from ckb_zkp_tpu_torch.gadgets import cbmt
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.r1cs import SynthesisMode, synthesize
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    curve = get_curve("bn254")
+    p = curve.fr.modulus
+    leaves = [bytes([i + 1]) * 32 for i in range(1 << n_lemmas)]
+    index = 7
+    rng = random.Random(SEED)
+    s = {}
+    t0 = time.perf_counter()
+    shape = synthesize(Sha256Membership(p, index, leaves, n_lemmas), p, SynthesisMode.PROVE)
+    s["synthesize"] = time.perf_counter() - t0
+    toxic = [rng.randrange(1, p) for _ in range(5)]
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    params = groth16.generate_parameters_from_shape(shape, curve, *toxic, device=DEVICE)
+    torch.cuda.synchronize()
+    s["setup"] = time.perf_counter() - t0
+    setup_launches = dict(cuda_build.COUNTS)
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    proof = groth16.create_proof_from_shape(params, shape, rng.randrange(p), rng.randrange(p))
+    torch.cuda.synchronize()
+    s["prove"] = time.perf_counter() - t0
+    prove_launches = dict(cuda_build.COUNTS)
+    root = cbmt.build_merkle_tree(leaves, lambda a, b: sha256_native(a + b)).root()
+    bits = [int(b) for b in bytes_to_bits_be(root)]
+    pvk = groth16.prepare_verifying_key(curve, params.vk)
+    t0 = time.perf_counter()
+    ok = groth16.verify_proof(curve, pvk, proof, bits)
+    s["verify"] = time.perf_counter() - t0
+    flipped = [1 - bits[0]] + bits[1:]
+    if not ok or groth16.verify_proof(curve, pvk, proof, flipped):
+        raise AssertionError("the CBMT proof does not verify, or a flipped root bit does")
+    need = [k for k in ("rcb_fixed_base",) if setup_launches[k] <= 0] + [
+        k for k in ("mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
+                    "rcb_add") if prove_launches[k] <= 0]
+    if need:
+        raise AssertionError(f"the CBMT setup and prove did not launch {need}")
+    out = {"lemmas": n_lemmas, "leaves": len(leaves), "constraints": shape.num_constraints,
+           "variables": shape.num_inputs + shape.num_aux, "domain": params.domain_size,
+           "seconds": {k: round(v, 3) for k, v in s.items()},
+           "setup_launches": {k: v for k, v in setup_launches.items() if v},
+           "prove_launches": {k: v for k, v in prove_launches.items() if v}}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli(card: str, cpu_child) -> dict:
+    """The CLI on the card: `cli_chain` (four processes through the module
+    entry point) in a thread beside `cli_runs` and then the SHA-256 CBMT
+    circuit (`cbmt_run`) in this process; every command's launches against
+    CLI_NEEDS; the setup files and proof JSONs (sha256 of each file) equal
+    to the CPU child's for the same seeds; the native verifiers on the
+    CLI's cells (`native_checks`). Returns the CLI commands' launches
+    (8-word, and "_nw12"), their K1 launches by field, and the figures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        chain = pool.submit(cli_chain)
+        run = cli_runs(DEVICE)
+        runs_s = time.perf_counter() - t0
+        cbmt = cbmt_run(card)
+        cbmt_s = time.perf_counter() - t0 - runs_s
+        chain_s = chain.result()
+    missing = {f"{label} {cmd}": [k for k in need if run["launches"][f"{label} {cmd}"].get(k, 0) <= 0]
+               for label, cmds in CLI_NEEDS.items() for cmd, need in cmds.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    if missing:
+        raise AssertionError(f"CLI commands did not launch: {missing}")
+    codes = native_checks(run["cells"])
+    want = finish_mini_cpu(cpu_child)
+    differ = sorted(k for k in set(run["files"]) | set(want["files"])
+                    if run["files"].get(k) != want["files"].get(k))
+    if differ:
+        raise AssertionError(f"CLI files on the card differ from the CPU child's: {differ}")
+    log(f"cli chain (python3 -m ckb_zkp_tpu_torch.cli.main, groth16 bn254 hash): exit 0, 0, 0 "
+        f"and 1 for a changed public input; seconds {json.dumps(chain_s)} [{card}]")
+    log(f"cli seconds: {json.dumps(run['seconds'])} [{card}]")
+    log(f"cli launches: {json.dumps(run['launches'])}")
+    log(f"cli device calls: {json.dumps({k: v for k, v in run['calls'].items() if v})}")
+    log(f"cli files ({len(run['files'])}, bytes and sha256 equal to the CPU child's): "
+        f"{json.dumps({k: v[0] for k, v in run['files'].items()})}")
+    log(f"cli native verifiers (0 / 2 / 1, equal to the contracts'): {json.dumps(codes)}")
+    log(f"cbmt (SHA-256 membership, Groth16 BN254): {json.dumps(cbmt)} [{card}]")
+    log(f"cli phase: the in-process commands {runs_s:.3f} s wall, then cbmt {cbmt_s:.3f} s "
+        f"(the chain beside both), the phase {time.perf_counter() - t0:.3f} s [{card}]")
+    return {"launches": run["totals"], "k1": run["k1"], "seconds": run["seconds"],
+            "chain_s": chain_s, "cbmt": cbmt, "runs_s": runs_s, "cbmt_s": cbmt_s}
+
+
 def phase_probes(results: dict, log2: int) -> dict:
     """Phase 7: the probes' own checks hold K2a and K2b (G1 and G2), the
     scan probes' kernels P-tot, P-prepk, P-chain (G1, every K and block
@@ -3812,7 +4160,8 @@ def run_phases(args, children: list) -> int:
     cpu_child = start_mini_cpu()
     spartan_child = start_spartan_mini("cpu")
     dl_child = start_dl_mini_cpu()
-    children += [cpu_child, spartan_child, dl_child]
+    cli_child = start_cli_cpu()
+    children += [cpu_child, spartan_child, dl_child, cli_child]
     log(f"scan levels (K3, K4 of one window batch at 2^{args.log2}): {json.dumps(levels)}")
     log(f"team shapes (K2, K5 of the prove at 2^{args.log2}, {card}): {json.dumps(team)}")
     log(f"fixed base (K6 at the setup's width 2^{args.log2}, {card}): {json.dumps(fixed)}")
@@ -3861,13 +4210,16 @@ def run_phases(args, children: list) -> int:
     log(f"dl phase seconds: {json.dumps({k: r['seconds'] for k, r in dl['runs'].items()})}"
         f" [{card}]")
     t8d = time.perf_counter()
+    cli = phase_cli(card, cli_child)
+    torch.cuda.empty_cache()
+    t8c = time.perf_counter()
     probes = phase_probes(results, args.log2 + 1)
     t9 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
         f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
         f"plonk {t6 - t5:.3f}, asvc {t6s - t6:.3f}, bls12_381 {t7 - t6s:.3f}, "
-        f"spartan {t8 - t7:.3f}, dl {t8d - t8:.3f}, "
-        f"probes {t9 - t8d:.3f} [{card}]")
+        f"spartan {t8 - t7:.3f}, dl {t8d - t8:.3f}, cli {t8c - t8d:.3f}, "
+        f"probes {t9 - t8c:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -3891,7 +4243,8 @@ def run_phases(args, children: list) -> int:
             | ({"spartan_launches": spartan["launches"][name]} if name in SPARTAN_KERNELS
                else {})
             | ({"dl_launches": dl["launches"][name]} if name in DL_KERNELS else {})
-            | ({"asvc_launches": asvc_run["fr_mont_mul"]} if name == "mont_mul" else {}))
+            | ({"asvc_launches": asvc_run["fr_mont_mul"]} if name == "mont_mul" else {})
+            | {"cli_launches": cli["launches"][name]})
     for row, name in WIDE_ROWS.items():
         r = results[row]
         src, replaces = KERNELS[name]
@@ -3909,7 +4262,7 @@ def run_phases(args, children: list) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name],
-            "dl_launches": dl["wide"][name]}
+            "dl_launches": dl["wide"][name], "cli_launches": cli["launches"][row]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     for row, field_name in (("mont_mul_25519_fq", "curve25519_fq"),
                             ("mont_mul_25519_fr", "curve25519_fr")):
@@ -3925,7 +4278,8 @@ def run_phases(args, children: list) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
             | ({"dl_launches": dl["k1_25519"].get(field_name, 0)}
-               if row == "mont_mul_25519_fq" else {}))  # run (e)'s
+               if row == "mont_mul_25519_fq" else {})  # run (e)'s
+            | {"cli_launches": cli["k1"].get(field_name, 0)})
     log(card)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

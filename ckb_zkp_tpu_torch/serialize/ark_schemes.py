@@ -10,9 +10,9 @@ the reference's word for word, with two changes:
   parameters, R1CS instance, SPARK encoding and proofs (NIZK and SNARK),
   Bulletproofs' generators, dense R1CS and proofs, the setup parameters
   and sigma protocols that Libra and Hyrax share, Libra's zk-GKR proof
-  and Hyrax's proof. `PT` is the pairing curve's G1, or for curve25519
-  the 32-byte Ristretto encoding; the Edwards curves' points come with
-  the curve registry.
+  and Hyrax's proof. `PT` is the pairing curve's G1, for curve25519 the
+  32-byte Ristretto encoding, and for jubjub and baby jubjub
+  (`host/edwards_groups.py`) the compressed twisted Edwards point.
 - The port's Marlin keys carry a device: decoding gives them the codec's
   `device` (default "cuda"). The device is never written into the bytes.
 - Three fast paths with the generic walk's bytes and errors: Spartan's
@@ -95,8 +95,9 @@ TDICT = ("tdict", (2, 3, 5, 6, 7, 8, 9, 10))
 class ArkSchemeCodec:
     """Encode/decode registered scheme structs in ark-0.2 wire format.
 
-    `curve` is a PairingCurve (PT == G1, compressed-with-flags) or the
-    Curve25519 registry entry (PT == 32-byte ristretto); `device` is where
+    `curve` is a PairingCurve (PT == G1, compressed-with-flags), the
+    Curve25519 registry entry (PT == 32-byte ristretto) or an Edwards
+    registry entry (PT == compressed y with the x-sign flag); `device` is where
     decoded keys that hold one (Marlin's) run.
     """
 
@@ -105,7 +106,8 @@ class ArkSchemeCodec:
         self.device = device
         self.fr = FieldCodec(curve.fr)
         self.is_ristretto = getattr(curve, "name", "") == "curve25519"
-        if not self.is_ristretto:
+        self.is_edwards = getattr(curve, "is_edwards", False)
+        if not (self.is_ristretto or self.is_edwards):
             self.g1 = G1Codec(curve)
             self.g2 = G2Codec(curve)
 
@@ -113,6 +115,9 @@ class ArkSchemeCodec:
     def _pt_bytes(self, v) -> bytes:
         if self.is_ristretto:
             return v.encode()
+        if self.is_edwards:
+            # ark-0.2 twisted Edwards compressed: y with x-sign flag
+            return self.curve.g1.point_to_bytes(v)
         return self.g1.to_bytes(v)
 
     def _pt_read(self, buf: io.BytesIO):
@@ -125,6 +130,15 @@ class ArkSchemeCodec:
             pt = RistrettoPoint.decode(raw)
             if pt is None:
                 raise ValueError("invalid ristretto encoding")
+            return pt
+        if self.is_edwards:
+            g = self.curve.g1
+            raw = buf.read(g._nbytes)
+            if len(raw) != g._nbytes:
+                raise ValueError("truncated edwards point")
+            pt = g.point_from_bytes(raw)
+            if pt is None:
+                raise ValueError("invalid edwards encoding")
             return pt
         return self.g1.read(buf)
 
@@ -313,7 +327,7 @@ class ArkSchemeCodec:
             return self._matrix_read(buf)
         if spec == DENSE:
             return self._dense_read(buf)
-        if spec in (("vec", G1), ("vec", PT)) and not self.is_ristretto:
+        if spec in (("vec", G1), ("vec", PT)) and not (self.is_ristretto or self.is_edwards):
             n = read_u64(buf)
             if n >= DEVICE_DECODE_MIN:
                 return self._g1_read_many(buf, n)

@@ -20,6 +20,7 @@ import random
 import pytest
 import torch
 from test_torch_marlin import reference_mini
+from test_torch_msm import reference_host_cutoff  # noqa: F401 (autouse)
 from test_torch_plonk import reference_circuit
 
 from ckb_zkp_tpu import contracts as ref_contracts

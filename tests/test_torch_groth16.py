@@ -8,6 +8,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+from test_torch_msm import reference_host_cutoff  # noqa: F401 (autouse)
 
 from ckb_zkp_tpu.bench_circuits import product_circuit_shape, square_chain_shape
 from ckb_zkp_tpu.host.pairing import get_curve

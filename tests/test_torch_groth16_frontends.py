@@ -19,6 +19,7 @@ import random
 import pytest
 import torch
 from test_golden_bytes import FLAG_INF, ref_g1_bytes, ref_g2_bytes
+from test_torch_msm import reference_host_cutoff  # noqa: F401 (autouse)
 
 from ckb_zkp_tpu.bench_circuits import square_chain_shape as ref_square_chain
 from ckb_zkp_tpu.circuits import Mini as RefMini

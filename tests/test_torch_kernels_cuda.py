@@ -8,7 +8,8 @@ BN254 and curve25519, the device thresholds at 2) on the card against
 the CPU, and chip_smoke's Spartan runs at a small size with the thresholds
 patched down; the reference tests' Bulletproofs (BN254 and curve25519),
 Hyrax and Libra (plain and zk) proofs with the device thresholds at 2 on
-the card against the CPU. Marked `cuda`; without a card they skip."""
+the card against the CPU; the CLI's Groth16 Mini on the card against the
+CPU. Marked `cuda`; without a card they skip."""
 
 import os
 import sys
@@ -467,3 +468,15 @@ def test_dl_mini_proofs_on_the_card_equal_the_cpu(smoke, scheme):
     card's proofs verify, refuse a changed input or output, and their
     bytes equal the CPU's (the plain versions; minutes of CPU)."""
     assert smoke.dl_mini_proofs("cuda", (scheme,)) == smoke.dl_mini_proofs("cpu", (scheme,))
+
+
+def test_cli_groth16_mini_on_the_card_equals_the_cpu(smoke):
+    """The CLI's Groth16 Mini over BN254 through `main(argv)` on the card
+    and with `--device cpu` (setup seed 5, prove seed 6, verify, a changed
+    public input refused): the card's setup files and proof JSON equal the
+    CPU's byte for byte, and its setup and prove launch their kernels."""
+    labels = ["groth16-bn254-mini"]
+    card, cpu = smoke.cli_runs("cuda", labels), smoke.cli_runs("cpu", labels)
+    assert card["files"] == cpu["files"] and len(card["files"]) == 4
+    for cmd, need in smoke.CLI_NEEDS["groth16-bn254-mini"].items():
+        assert all(card["launches"][f"groth16-bn254-mini {cmd}"].get(k, 0) > 0 for k in need)

@@ -13,7 +13,8 @@ package (`random.Random(123)`, SRS degree 128), the port indexing and
 proving over the JAX package's SRS (`convert.srs_from_reference`): the
 verifying key bytes and the proof (commitments, evaluations, openings)
 equal the JAX package's, the proof verifies in both verifiers and a wrong
-public input is refused. The port's own setup and the device branch of
+public input is refused; the native C++ Marlin verifier on the port's
+cells gives the JAX package's codes. The port's own setup and the device branch of
 `HDomain` inside the AHP are `tests/test_torch_marlin_setup.py`.
 Tolerance: none (integers and points are exact). JAX runs eagerly."""
 
@@ -21,6 +22,7 @@ import random
 
 import pytest
 import torch
+from test_torch_msm import reference_host_cutoff  # noqa: F401 (autouse)
 
 from ckb_zkp_tpu.circuits import Mini as RefMini
 from ckb_zkp_tpu.host import poly as ref_hpoly
@@ -168,9 +170,38 @@ def ref_run():
     return reference_mini()
 
 
-def test_marlin_mini_over_the_reference_srs(ref_run):
+@pytest.fixture(scope="module")
+def port_run(ref_run):
     srs = srs_from_reference(ref_run["srs"], "cpu")
     assert srs.max_degree == ref_run["srs"].max_degree == 128
-    ivk, proof = port_mini(srs, ref_run["state"])
+    return port_mini(srs, ref_run["state"])
+
+
+def test_marlin_mini_over_the_reference_srs(ref_run, port_run):
+    ivk, proof = port_run
     assert ivk.device == torch.device("cpu")
     check_against_reference(ref_run, ivk, proof)
+
+
+def test_native_marlin_verifier_on_the_port_cells(port_run):
+    """The native C++ Marlin verifier (`native/marlin_bn254.cc`, built by
+    the port's `native`) on the port's Mini cells: 0, 2 and 1 as the JAX
+    package's `test_native_marlin_verifier` expects, and the contract
+    verifier's codes on the same cells. Skipped without g++, as that test."""
+    from ckb_zkp_tpu_torch import contracts, native
+    from ckb_zkp_tpu_torch.serialize.ark_schemes import ark_encode
+    from ckb_zkp_tpu_torch.serialize.tobytes import fr_bytes
+
+    if not native.available():
+        pytest.skip("g++ unavailable")
+    assert native.marlin_selftest() == 0
+    ivk, proof = port_run
+    vk_cell, proof_cell = ark_encode(CURVE, ivk), ark_encode(CURVE, proof)
+    good, wrong = fr_bytes(CURVE, 10), fr_bytes(CURVE, 11)
+    assert native.marlin_verify_bn254(vk_cell, proof_cell, good) == 0
+    assert native.marlin_verify_bn254(vk_cell, proof_cell, wrong) == 2
+    assert native.marlin_verify_bn254(vk_cell, proof_cell[:-3], good) == 1
+    assert native.marlin_verify_bn254(vk_cell[:-9], proof_cell, good) == 1
+    for cells in ((vk_cell, proof_cell, good), (vk_cell, proof_cell, wrong)):
+        assert contracts.universal_marlin_verifier("bn254", *cells, device="cpu") == \
+            native.marlin_verify_bn254(*cells)

@@ -6,6 +6,9 @@ The 16-bit-window branch (N >= 2^18) is left to the card: its 65536-bucket
 tail is too heavy for the plain path here; chip_smoke.py's 2^20 prove runs
 it."""
 
+import os
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,25 @@ from ckb_zkp_tpu_torch.ops.msm import device_group
 
 torch.set_num_threads(1)
 CURVE = get_curve("bn254")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_host_cutoff():
+    """The JAX package's cached BN254 device groups at the host cutoff it
+    picks itself (`ckb_zkp_tpu/ops/msm.py:374-379`) for the module that
+    imports this fixture. tests/test_msm.py sets the cutoff to 0 on these
+    groups and leaves it so: in the same worker, every small MSM of a later
+    reference run would then compile a device MSM, minutes on the CPU, where
+    the JAX package runs it on host ints."""
+    cutoff = int(os.environ.get("CKB_ZKP_TPU_HOST_MSM_MAX",
+                                "512" if jax.default_backend() == "cpu" else "4096"))
+    groups = [ref_device_group(CURVE, g) for g in ("g1", "g2")]
+    saved = [g.small_host_threshold for g in groups]
+    for g in groups:
+        g.small_host_threshold = cutoff
+    yield
+    for g, s in zip(groups, saved):
+        g.small_host_threshold = s
 
 
 def _affine(p):

@@ -13,6 +13,9 @@ import pytest
 
 import ckb_zkp_tpu_torch
 from ckb_zkp_tpu_torch import contracts, convert
+from ckb_zkp_tpu_torch.cli.main import (_read_artifact, _srs_from_portable, _srs_to_portable,
+                                        prove_cmd, setup_cmd, struct_decode, verify_cmd)
+from ckb_zkp_tpu_torch.curve import Curve
 from ckb_zkp_tpu_torch.ops import (cuda_build, cuda_probe, field, limbs, msm, ntt,
                                    ristretto_device, sumcheck)
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
@@ -53,6 +56,9 @@ import ckb_zkp_tpu_torch.ops.ristretto_device, ckb_zkp_tpu_torch.ops.sumcheck
 import ckb_zkp_tpu_torch.ops.edwards
 import ckb_zkp_tpu_torch.schemes.bulletproofs, ckb_zkp_tpu_torch.schemes.hyrax
 import ckb_zkp_tpu_torch.schemes.libra
+import ckb_zkp_tpu_torch.gadgets, ckb_zkp_tpu_torch.circuits, ckb_zkp_tpu_torch.curve
+import ckb_zkp_tpu_torch.host.edwards_groups, ckb_zkp_tpu_torch.serialize.struct_codec
+import ckb_zkp_tpu_torch.native, ckb_zkp_tpu_torch.cli, ckb_zkp_tpu_torch.cli.main
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -61,6 +67,13 @@ assert params.domain_size == 64
 proof = groth16.create_proof_from_shape(params, shape, 0, 0)
 pvk = groth16.prepare_verifying_key(curve, params.vk)
 assert groth16.verify_proof(curve, pvk, proof, shape.input_assignment[1:])
+from ckb_zkp_tpu_torch.serialize import struct_codec
+name = b"ckb_zkp_tpu.schemes.groth16.types:Proof"  # a JAX package class, no stand-in
+try:
+    struct_codec.decode(curve, b"D" + bytes([len(name)]) + name + b"N" * 3)
+    raise SystemExit("decoded a class that no stand-in registers")
+except struct_codec.DecodeError:
+    pass
 assert "jax" not in sys.modules, "the port imported jax"
 assert "ckb_zkp_tpu" not in sys.modules, "the port imported the JAX package"
 jax_dir = os.path.realpath(sys.argv[1]) + os.sep
@@ -195,6 +208,10 @@ def test_source_scan_rejects_the_alias_loader():
     (zk_linear_gkr.ZKLinearGKRProof.verify, "device"),
     (contracts.mini_libra_zk_linear_gkr_verifier, "device"),
     (contracts.mini_hyrax_zk_linear_gkr_verifier, "device"),
+    (setup_cmd, "device"), (prove_cmd, "device"), (verify_cmd, "device"),
+    (struct_decode, "device"), (_read_artifact, "device"), (_srs_to_portable, "device"),
+    (_srs_from_portable, "device"),
+    (Curve.device, "device"), (Curve.vartime_multiscalar_mul, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"

@@ -14,6 +14,7 @@ scalar past the cut raises. Tolerance: none."""
 
 import pytest
 import torch
+from test_torch_msm import reference_host_cutoff  # noqa: F401 (autouse)
 
 from ckb_zkp_tpu.bench_circuits import product_circuit_shape
 from ckb_zkp_tpu.host.pairing import get_curve
