@@ -60,8 +60,25 @@ Jacobian MSM of 2^14 points, the
 widest that still runs the elementwise K9a (`_prefix_boundary_leaf`'s
 leaf branch, `leaf_shapes`), against the host ints, with that K9a's
 launches counted from those two MSMs alone (`phase_jacobian_leaf`);
-Marlin (`phase_marlin`): `universal_setup` (2^18 + 1 powers: K6 twice),
-`index`, `create_random_proof` and `verify_proof` of the (2^16 -
+the sharded prove (`phase_parallel`, `ckb_zkp_tpu_torch/parallel/`): (p1)
+one rank over NCCL in this process proves the 2^log2 chain with `mesh=`
+(the sharded domain at d = 1, the sharded MSMs), equal point for point to
+the slice's proof, with its stages, collective seconds, peak memory and
+launches (K1, K2, K4 and K5 required; K3 logged); (p3) on that rank a
+BLS12-381 G1 and G2 `msm_sharded` of 2^16 points against the host ints,
+its 12-word launches covering the single-device MSM's, and the fold of two
+partials on the 12-word K5 (K8 has no 12-word instance); (p2) two ranks in
+child processes sharing the one card over gloo (NCCL refuses two ranks on
+one device; the collectives pass through host memory), each with its own
+synthesis and setup from the same toxic waste, each proof equal to the
+slice's, rank 0's verdicts checked, each rank launching K1, K2, K4 and K5.
+Several cards (NCCL, a card a rank) are not run: the script needs one;
+then BLS12-381 (7), which times its 12-word kernel rows before any child
+process shares the card; from there on the Spartan runs, then the DL
+runs and the CLI's card work run in child processes beside this one's
+phases (host-bound work: the card is mostly idle), each read where its
+phase stands below; Marlin (`phase_marlin`): `universal_setup` (2^17 + 1 powers: K6 twice),
+`index`, `create_random_proof` and `verify_proof` of the (2^15 -
 2)-constraint square chain over BN254, each stage timed (the AHP's device
 transforms apart from its host work, `TransformClock`), the proof
 verified and refused under a changed public input, every K1-K6 launched
@@ -73,7 +90,7 @@ trip over BLS12-381 at degree 2^12 that launches every 12-word K1-K6
 (`kzg_launches` in the `_nw12` rows, `phase_kzg_wide`);
 PLONK (`phase_plonk`): `Plonk.setup` (4n + 1 powers: K6 twice), `keygen`
 (the index, its transforms apart, `TransformClock`; its 11 commitments) and
-`prove` of a 2^16-gate square chain through the composer over BN254 with
+`prove` of a 2^15-gate square chain through the composer over BN254 with
 one public input, each stage timed (the host rounds, the `HDomain`
 transforms, the three commitments, the evaluations, the batch opening),
 `verify` on the public inputs and on a changed one, the vk and proof
@@ -82,25 +99,26 @@ and ERR_VERIFY on those cells, every K1-K6 launched (`plonk_launches` in
 the kernel line's K1-K6 rows) and a warm prove under the profiler; the
 reference circuit of `tests/test_plonk.py` (BLS12-381, SRS 64) on the card
 with the CPU child's vk and proof bytes (`phase_plonk_reference`); aSVC
-(`phase_asvc`) over BLS12-381 at 2^20 positions: `key_gen` (five
+(`phase_asvc`) over BLS12-381 at 2^19 positions: `key_gen` (five
 fixed-base MSMs on the card, G2's among them; its host tables and decodes
-timed apart) under the profiler, `commit` of 2^20 values, `prove_pos` and
+timed apart) under the profiler, `commit` of 2^19 values, `prove_pos` and
 `verify_pos` at one and at 16 positions, `verify_upk`, `update_commit` +
 `update_proof` at the same position and another, `aggregate_proofs` of two
 proofs, each verdict as `tests/test_asvc.py` expects and wrong values
 refused, the 12-word K1-K6 and Fr's K1 launched (`asvc_launches` in the
-`_nw12` rows and the K1 row); Spartan (`phase_spartan`, which runs after
-the BLS12-381 phase (7), when the CPU child of its Mini proofs is done;
-after K1 at curve25519's two fields against its plain version at 2^20
-rows, `phase_spartan_kernels`): the runs of SPARTAN_RUNS, square chains whose
-witness count equals their constraint count: (a) a BN254 NIZK of 2^19
-constraints, alone and under the profiler, verified through its contract
-verifier (OK, ERR_VERIFY on a changed public input), whose witness
-commitment's 512 row MSMs run on the RCB engine (K1, K2, K5 required),
-then (b) a curve25519 NIZK of 2^19 on the Ristretto group (K1 at
-2^255 - 19 and at l required) and (c) a BN254 SNARK of 2^16 constraints
-(contract verifier too; its generators one fixed-base MSM on the card), in
-child processes beside each other, each with its setup, hash, prove and
+`_nw12` rows and the K1 row); Spartan (`phase_spartan`, read after aSVC,
+when the CPU child of its Mini proofs is done; after K1 at curve25519's
+two fields against its plain version at 2^20 rows,
+`phase_spartan_kernels`): the runs of SPARTAN_RUNS, square chains whose
+witness count equals their constraint count, in child processes beside
+each other, started after the BLS12-381 phase (`start_spartan_runs`):
+(a) a BN254 NIZK of 2^19 constraints, its prove under the profiler,
+verified through its contract verifier (OK, ERR_VERIFY on a changed
+public input), whose witness commitment's 512 row MSMs run on the RCB
+engine (K1, K2, K5 required), (b) a curve25519 NIZK of 2^19 on the
+Ristretto group (K1 at 2^255 - 19 and at l required) and (c) a BN254
+SNARK of 2^16 constraints (contract verifier too; its generators one
+fixed-base MSM on the card), each with its setup, hash, prove and
 verify seconds and stages, its device and host calls of
 `msm_over_fixed_base` and of the sumchecks as the launches show them
 (`device_calls_counted`: a run with no device call of either fails), the proof
@@ -110,13 +128,13 @@ bytes (`spartan_launches` in the
 K1-K5 rows, two K1 rows for curve25519's fields); Bulletproofs, Hyrax and
 Libra (`phase_dl`, after Spartan): the runs of DL_RUNS, (g) Libra over
 BLS12-381 on 2^16 copies of the test circuit side by side (2^19 inputs and
-witnesses) in this process, its zk prove alone under the profiler, then
+witnesses) in this process, its zk prove under the profiler, then
 its bytes and its contract verifier's OK and ERR_VERIFY, beside (d)
 Bulletproofs over BN254 and (e) over curve25519 on the 2^11 square chain
 (BN254's verdicts through the contract verifier on the (Generators,
 R1csCircuit, Proof) cell), (f) Hyrax over BLS12-381 on 2^16 instances (its
-contract verifier) and (g)'s plain prove and verdicts in child processes,
-each with
+contract verifier) and (g)'s plain prove and verdicts in child processes
+started beside the Spartan phase (`start_dl_runs`), each with
 its setup, prove and verify seconds and stages, its bytes round trip, its
 device and host calls (`device_calls_counted`: a device MSM in each, a
 device sumcheck in (f) and (g)), K1 by field and the K1-K6 launches (the
@@ -125,7 +143,8 @@ device sumcheck in (f) and (g)), K1 by field and the K1-K6 launches (the
 the Mini proofs of the reference tests with both thresholds at 2 on the
 card against a CPU child's bytes (`dl_launches` in the K1-K6, the
 `_nw12` and the `mont_mul_25519_fq` rows); the CLI (`phase_cli`, after
-`phase_dl`): `python3 -m ckb_zkp_tpu_torch.cli.main` setup, prove and
+`phase_dl`; its card work in a child process started beside (g),
+`cli_card`): `python3 -m ckb_zkp_tpu_torch.cli.main` setup, prove and
 verify of Groth16 BN254 hash, each a process, exit codes 0, 0, 0 and 1
 for a changed public input (`cli_chain`, in a thread), beside
 `cli_runs` and `cbmt_run`: `main(argv)` round trips of CLI_CASES (tests/test_cli.py's
@@ -139,7 +158,7 @@ cells (0, 2, 1, as the contract verifiers); and Groth16 over BN254 of a
 SHA-256 CBMT membership circuit (5 lemmas, a 32-leaf tree, `cbmt_run`,
 after `cli_runs`), verified and refused with a flipped root bit, its
 setup launching K6 and its prove K1-K5; (7)
-BLS12-381 (`phase_wide`), whose Fq and Fq2 run the 12-word instances of
+BLS12-381 (`phase_wide`, after the sharded prove), whose Fq and Fq2 run the 12-word instances of
 K1-K6 (its Fr the 8-word ones): each 12-word instance against its plain
 version at edge values and at the shapes of a 2^log2 BLS12-381 setup and
 prove, G1 and G2 (`phase_wide_kernels`: K1 at 0, 1, p - 1 and R and at the
@@ -190,7 +209,9 @@ these functions, so `library_ms` is null, except for P15 (one
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table (a row for
 each 8-word kernel and one, named "<kernel>_nw12", for each 12-word
-instance of K1-K6, its launches from the BLS12-381 slice; K1 at
+instance of K1-K6, its launches from the BLS12-381 slice, with
+`parallel_launches` from (p1) in the K1-K6 rows and from (p3) in the
+12-word rows; K1 at
 curve25519's fields as "mont_mul_25519_fq" and "mont_mul_25519_fr", their
 launches from the Spartan run (b)). Without a
 CUDA device, or without the rest of the repository, it exits non-zero and
@@ -1768,6 +1789,263 @@ def phase_jacobian_leaf(card: str) -> dict:
     return launches
 
 
+# The sharded prove (`ckb_zkp_tpu_torch/parallel/`): the kernels every rank
+# must launch (K1, K2, K4, K5; K3 only where block totals pass _TOP_MAX),
+# (p2)'s ranks, which share the one card over gloo, and (p3)'s MSM width
+PARALLEL_NEEDS = ("mont_mul", "scan_prefix_madd", "scan_total_add", "rcb_add")
+PARALLEL_RANKS = 2
+PARALLEL_WIDE_LOG2 = 16
+PARALLEL_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_prove(card: str, mesh, params, shape, r: int, s: int, label: str) -> dict:
+    """One `create_proof_from_shape(..., mesh=)` with the counts set to 0
+    just before it and read just after: its seconds, stages (collectives
+    apart), collective seconds and calls, launches, peak and held device
+    memory, and the proof's points."""
+    import torch
+
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    torch.cuda.synchronize()
+    before = dict(mesh.stats)
+    cuda_build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stages: dict = {}
+    t0 = time.perf_counter()
+    proof = groth16.create_proof_from_shape(params, shape, r, s, timings=stages, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_build.COUNTS)
+    out = {"rank": mesh.rank, "ranks": mesh.size, "seconds": round(secs, 6),
+           "stages": {k: round(v, 6) for k, v in stages.items()},
+           "collective_s": round(mesh.stats["seconds"] - before["seconds"], 6),
+           "collective_calls": mesh.stats["calls"] - before["calls"],
+           "collective_bytes": mesh.stats["bytes"] - before["bytes"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "held_bytes": torch.cuda.memory_allocated(),
+           "proof": [[p.x, p.y] if not p.infinity else None
+                     for p in (proof.a, proof.b, proof.c)]}
+    log(f"sharded prove {label}, rank {mesh.rank} of {mesh.size}: {secs:.3f} s, collectives "
+        f"{out['collective_s']:.3f} s in {out['collective_calls']} calls "
+        f"({out['collective_bytes']} bytes), peak device memory {out['peak_bytes']} bytes, "
+        f"held {out['held_bytes']} [{card}]")
+    log(f"sharded prove {label}, rank {mesh.rank}: stages {json.dumps(out['stages'])}; "
+        f"launches {json.dumps(out['launches'])} (K3 {launches['scan_prefix_add']})")
+    missing = [k for k in PARALLEL_NEEDS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the sharded prove ({label}, rank {mesh.rank}) did not launch "
+                             f"{missing}")
+    out["proof_obj"] = proof
+    return out
+
+
+def _same_proof(got: dict, want, label: str) -> None:
+    pts = [[p.x, p.y] if not p.infinity else None for p in (want.a, want.b, want.c)]
+    if json.loads(json.dumps(got["proof"])) != json.loads(json.dumps(pts)):
+        raise AssertionError(f"the sharded proof ({label}, rank {got['rank']}) != the "
+                             "single-device proof")
+
+
+def parallel_rank(card: str, port: int, rank: int, world: int, log2: int) -> dict:
+    """(p2)'s rank: joins a gloo world of `world` ranks on the one card,
+    synthesizes phase_slice's square chain, runs its setup from the same
+    toxic waste, and proves it sharded with the same (r, s); rank 0 also
+    checks the verifier's verdicts. Returns `sharded_prove`'s record."""
+    import torch
+    import torch.distributed as dist
+
+    from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.parallel import global_mesh, init_multihost
+    from ckb_zkp_tpu_torch.schemes import groth16
+
+    cuda_build.lib()
+    init_multihost(f"localhost:{port}", world, rank, "gloo", device=DEVICE,
+                   timeout_s=PARALLEL_TIMEOUT_S)
+    try:
+        mesh = global_mesh()
+        curve = get_curve("bn254")
+        fr = curve.fr.modulus
+        prng = random.Random(SEED)  # phase_slice's sequence: toxic waste, then r, s
+        t0 = time.perf_counter()
+        shape = square_chain_shape((1 << log2) - 2, fr, seed=SEED % 1000)
+        synth_s = time.perf_counter() - t0
+        toxic = [prng.randrange(1, fr) for _ in range(5)]
+        t0 = time.perf_counter()
+        params = groth16.generate_parameters_from_shape(shape, curve, *toxic, device=DEVICE)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        log(f"parallel rank {rank}: synthesis {synth_s:.3f} s, setup {setup_s:.3f} s [{card}]")
+        r, s = prng.randrange(1, fr), prng.randrange(1, fr)
+        out = sharded_prove(card, mesh, params, shape, r, s, f"(p2) 2^{log2}")
+        if rank == 0:
+            check_verdicts(curve, params, shape, out["proof_obj"])
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out.pop("proof_obj")
+    return out | {"synthesis_s": round(synth_s, 6), "setup_s": round(setup_s, 6)}
+
+
+def start_parallel_rank(card: str, port: int, rank: int, log2: int):
+    import subprocess
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "print(json.dumps(chip_smoke.parallel_rank(sys.argv[2], *map(int, sys.argv[3:]))))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, card, str(port), str(rank),
+                             str(PARALLEL_RANKS), str(log2)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_parallel_ranks(children: list) -> list:
+    """Relays each rank's lines and reads its record; a rank that fails or
+    outlives PARALLEL_TIMEOUT_S fails the phase with its stderr's tail (the
+    others are killed, so none waits in a collective)."""
+    import subprocess
+
+    outs = []
+    try:
+        for rank, child in enumerate(children):
+            try:
+                out, err = child.communicate(timeout=PARALLEL_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                out, err = child.communicate()
+                raise AssertionError(f"(p2) rank {rank} timed out: {err[-3000:]}")
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                log(line)
+            if child.returncode != 0 or not lines:
+                raise AssertionError(f"(p2) rank {rank} failed: {err[-3000:]}")
+            outs.append(json.loads(lines[-1]))
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    return outs
+
+
+def wide_sharded_msms(card: str, mesh) -> dict:
+    """(p3): a BLS12-381 G1 and G2 msm_sharded of 2^PARALLEL_WIDE_LOG2
+    points on `mesh`, each equal to the host ints (16 host points repeated
+    under random scalars, so the host sum is 16 scalar multiples), with
+    the 12-word launches of each (`cuda_build.WIDE`), which must cover
+    those of the single-device MSM of the same input; then the fold of two
+    partials, which must run K5's 12-word instance and not K8 (which has
+    no 12-word instance)."""
+    import torch
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+    from ckb_zkp_tpu_torch.parallel import msm_sharded
+    from ckb_zkp_tpu_torch.parallel.msm import fold
+
+    curve = get_curve("bls12_381")
+    r = curve.fr.modulus
+    n = 1 << PARALLEL_WIDE_LOG2
+    prng = random.Random(SEED + 3)
+    out = {}
+    for group in ("g1", "g2"):
+        dg = device_group(curve, group, DEVICE)
+        host = dg.host_group
+        gen = curve.g1_gen if group == "g1" else curve.g2_gen
+        base = [host.mul(gen, prng.randrange(1, r)) for _ in range(15)] + [host.infinity]
+        sc = [prng.randrange(r) for _ in range(n)]
+        want = host.infinity
+        for j, b in enumerate(base):
+            want = host.add(want, host.mul(b, sum(sc[j::16]) % r))
+        idx = torch.arange(n, device=DEVICE) % 16
+        P = tuple(c[idx] for c in dg.encode_points(base))
+        S = dg.encode_scalars(sc)
+        cuda_build.reset_counts()
+        single = dg.msm(P, S)
+        torch.cuda.synchronize()
+        single_wide = {k: v for k, v in cuda_build.WIDE.items() if v}
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        got = msm_sharded(dg, P, S, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        wide = {k: v for k, v in cuda_build.WIDE.items() if v}
+        if dg.decode_point(got) != want or dg.decode_point(single) != want:
+            raise AssertionError(f"(p3) BLS12-381 {group} msm_sharded at {n} points != host ints")
+        if not wide or not set(single_wide) <= set(wide):
+            raise AssertionError(f"(p3) {group}: the sharded MSM's 12-word launches {wide} do "
+                                 f"not cover the single-device MSM's {single_wide}")
+        cuda_build.reset_counts()
+        twice = fold(dg, tuple(torch.stack([c, c]) for c in got))
+        torch.cuda.synchronize()
+        fold_wide, fold_k8 = cuda_build.WIDE["rcb_add"], cuda_build.COUNTS["ec_add"]
+        if dg.decode_point(twice) != host.add(want, want) or fold_wide <= 0 or fold_k8:
+            raise AssertionError(f"(p3) {group}: the fold of two partials is wrong or did not "
+                                 f"run the 12-word K5 (K5w {fold_wide}, K8 {fold_k8})")
+        log(f"(p3) BLS12-381 {group} msm_sharded, {n} points, 1 rank: {secs:.6f} s, equal to "
+            f"the host ints; 12-word launches {json.dumps(wide)} (single-device "
+            f"{json.dumps(single_wide)}); the fold of two partials: K5w {fold_wide}, K8 "
+            f"{fold_k8} [{card}]")
+        out[group] = {"seconds": round(secs, 6), "wide": wide, "fold_rcb_add_nw12": fold_wide}
+    return out
+
+
+def phase_parallel(card: str, run: dict, log2: int) -> dict:
+    """The sharded prove on the one card (`ckb_zkp_tpu_torch/parallel/`):
+    (p1) one rank over NCCL in this process proves phase_slice's 2^log2
+    square chain with `mesh=` (the sharded domain at d = 1, the sharded
+    MSMs), equal point for point to `run["proof"]`, launching K1, K2, K4
+    and K5; (p3) on that rank, `wide_sharded_msms`; (p2) PARALLEL_RANKS
+    ranks in child processes on this one card over gloo (NCCL refuses two
+    ranks on one device), each with its own synthesis and setup from the
+    same toxic waste, each proof equal to `run["proof"]`, each rank
+    launching K1, K2, K4 and K5. Several cards are not run here: the
+    script needs one card."""
+    import torch
+    import torch.distributed as dist
+
+    from ckb_zkp_tpu_torch.parallel import global_mesh, init_multihost
+
+    t0 = time.perf_counter()
+    init_multihost(f"localhost:{free_port()}", 1, 0, "nccl", device=DEVICE,
+                   timeout_s=PARALLEL_TIMEOUT_S)
+    try:
+        mesh = global_mesh()
+        p1 = sharded_prove(card, mesh, run["params"], run["shape"], run["r"], run["s"],
+                           f"(p1) 2^{log2}")
+        _same_proof(p1, run["proof"], "(p1)")
+        log(f"(p1) the sharded proof equals the single-device proof [{card}]")
+        p3 = wide_sharded_msms(card, mesh)
+        del mesh  # with it its sharded domain's twiddle and coset blocks
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    port = free_port()
+    children = [start_parallel_rank(card, port, rank, log2) for rank in range(PARALLEL_RANKS)]
+    p2 = finish_parallel_ranks(children)
+    for out in p2:
+        _same_proof(out, run["proof"], "(p2)")
+    log(f"(p2) {PARALLEL_RANKS} ranks on one card over gloo: every rank's proof equals the "
+        f"single-device proof; rank seconds {[o['seconds'] for o in p2]}, collective seconds "
+        f"{[o['collective_s'] for o in p2]}, peak bytes {[o['peak_bytes'] for o in p2]} [{card}]")
+    t2 = time.perf_counter()
+    p1.pop("proof_obj")
+    return {"p1": p1, "p2": p2, "p3": p3,
+            "seconds": {"p1_p3": round(t1 - t0, 3), "p2": round(t2 - t1, 3)}}
+
+
 # The 12-word instances of K1-K6 (BLS12-381's Fq and Fq2): a row each in
 # the kernel table, beside the 8-word rows, with launches from the
 # BLS12-381 slice (`cuda_build.WIDE`)
@@ -1950,7 +2228,8 @@ def phase_wide(results: dict, card: str, log2: int) -> dict:
 
 
 # ---------------------------------------------------------------- Marlin
-MARLIN_LOG2 = 16  # |H| = 2^16: square chain of 2^16 - 2 constraints, SRS 2^18 + 1
+MARLIN_LOG2 = 15  # |H| = 2^15: square chain of 2^15 - 2 constraints, SRS 2^17 + 1 (2^16
+# until the sharded prove's phase came: cut to keep the smoke within its time limit)
 MARLIN_KERNELS = ("mont_mul", "scan_prefix_madd", "scan_prefix_add", "scan_total_add",
                   "rcb_add", "rcb_fixed_base")  # K1-K6, 8 words on BN254
 KZG_WIDE_LOG2 = 12  # the BLS12-381 KZG10 round trip's degree
@@ -2279,8 +2558,10 @@ def phase_kzg_wide(card: str, log2: int = KZG_WIDE_LOG2) -> dict:
 
 
 # ---------------------------------------------------------------- PLONK, aSVC
-PLONK_LOG2 = 16  # n = 2^16 gates (2^16 - 1 squarings and the public input's), 4n = 2^18
-ASVC_LOG2 = 20  # 2^20 positions over BLS12-381
+PLONK_LOG2 = 15  # n = 2^15 gates (2^15 - 1 squarings and the public input's), 4n = 2^17
+# (2^16 until the sharded prove's phase came, cut as Marlin)
+ASVC_LOG2 = 19  # 2^19 positions over BLS12-381 (2^20 until the sharded prove's phase
+# came: cut to keep the smoke within its time limit)
 
 
 def plonk_square_chain(n_gates: int, p: int, x0: int):
@@ -2889,17 +3170,28 @@ def spartan_run(card: str, label: str, curve_name: str, kind: str, log_c: int,
             "k1": k1, "peak_bytes": peak, "profile": prof, "verdicts": verdicts}
 
 
-def start_spartan_run(card: str, label: str):
+def start_spartan_run(card: str, label: str, profile: bool = False):
     """`spartan_run` of SPARTAN_RUNS' `label` in a child process on the
-    card (its own CUDA context and launch counts); `finish_run` relays its
-    lines and reads its results."""
+    card (its own CUDA context and launch counts; its prove under the
+    profiler with `profile`); `finish_run` relays its lines and reads its
+    results."""
     import subprocess
 
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
             "run = next(r for r in chip_smoke.SPARTAN_RUNS if r[0] == sys.argv[3]); "
-            "print(json.dumps(chip_smoke.spartan_run(sys.argv[2], *run, profile=False)))")
-    return subprocess.Popen([sys.executable, "-c", code, REPO, card, label], cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            "print(json.dumps(chip_smoke.spartan_run(sys.argv[2], *run, "
+            "profile=sys.argv[4] == '1')))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, card, label, str(int(profile))],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_spartan_runs(card: str) -> dict:
+    """The runs of SPARTAN_RUNS, each in a child process on the card, (a)'s
+    prove under the profiler: started once the BLS12-381 phase has timed
+    its kernel rows, so that they run beside the Marlin, PLONK and aSVC
+    phases (host-bound work, like theirs); `phase_spartan` reads them."""
+    return {label: start_spartan_run(card, label, profile=label == "a")
+            for label, *_ in SPARTAN_RUNS}
 
 
 def finish_run(child, label: str) -> dict:
@@ -2949,30 +3241,24 @@ def phase_spartan_kernels(results: dict, n: int = 1 << 20) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_spartan(card: str, cpu_child) -> dict:
-    """Spartan on the card: the runs of SPARTAN_RUNS (`spartan_run`). (a)
-    runs alone, under the profiler; then (b) and (c) in child processes
-    beside each other, with the Mini proofs (thresholds at 2) in a third
-    child on the card, whose bytes must equal the CPU child's. Every run
-    must make device calls of `msm_over_fixed_base` and of the sumchecks
-    (as `device_calls_counted` observes them); (a) must launch K1, K2, K5 and
-    K6 (its generators) and (b) K1 at 2^255 - 19 and at l. Returns the runs, the K1-K5
-    launches of the three runs together and (b)'s K1 launches by field."""
-    import torch
-
+def phase_spartan(card: str, cpu_child, run_children: dict) -> dict:
+    """Spartan on the card: the runs of SPARTAN_RUNS (`spartan_run`), in the
+    child processes of `start_spartan_runs`, read here, beside the Mini
+    proofs (thresholds at 2) in another child on the card, whose bytes must
+    equal the CPU child's. Every run must make device calls of
+    `msm_over_fixed_base` and of the sumchecks (as `device_calls_counted`
+    observes them); (a) must launch K1, K2, K5 and K6 (its generators) and
+    (b) K1 at 2^255 - 19 and at l. Returns the runs, the K1-K5 launches of
+    the three runs together and (b)'s K1 launches by field."""
     t0 = time.perf_counter()
-    runs = {"a": spartan_run(card, *SPARTAN_RUNS[0], profile=True)}
-    torch.cuda.empty_cache()
-    a_s = time.perf_counter() - t0
-    children = {label: start_spartan_run(card, label) for label in ("b", "c")}
-    children["mini"] = start_spartan_mini(DEVICE)
+    mini = start_spartan_mini(DEVICE)
     try:
-        for label in ("b", "c"):
-            runs[label] = finish_run(children[label], label)
-        got = finish_mini_cpu(children["mini"])
-        rest_s = time.perf_counter() - t0 - a_s
+        runs = {label: finish_run(child, label) for label, child in run_children.items()}
+        runs_s = time.perf_counter() - t0
+        got = finish_mini_cpu(mini)
+        wall = time.perf_counter() - t0
     finally:
-        for child in children.values():
+        for child in [mini, *run_children.values()]:
             if child.poll() is None:
                 child.kill()
                 child.wait()
@@ -2986,17 +3272,19 @@ def phase_spartan(card: str, cpu_child) -> dict:
             "b": [k for k in ("curve25519_fq", "curve25519_fr") if runs["b"]["k1"].get(k, 0) <= 0]}
     if need["a"] or need["b"]:
         raise AssertionError(f"Spartan kernels not launched: {need}")
+    t1 = time.perf_counter()
     want = finish_mini_cpu(cpu_child)
+    cpu_wait = time.perf_counter() - t1
     if got != want:
         raise AssertionError("the Spartan Mini proofs on the card differ from the CPU ones: "
                              f"{[k for k in got if got[k] != want.get(k)]}")
     log(f"spartan mini (thresholds at 2): NIZK and SNARK on bn254 and curve25519, the proof "
         f"bytes of the card's child equal the port's CPU ones; all verify, [11] refused; "
-        f"(a) alone {a_s:.3f} s wall, then (b), (c) and the card's Mini proofs beside each "
-        f"other {rest_s:.3f} s wall [{card}]")
+        f"(a), (b), (c) read {runs_s:.3f} s after their slot began, the card's Mini proofs "
+        f"{wall:.3f} s, the CPU child's {cpu_wait:.3f} s later [{card}]")
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in SPARTAN_KERNELS}
     return {"runs": runs, "launches": total, "k1_25519": runs["b"]["k1"],
-            "a_s": a_s, "rest_s": rest_s}
+            "runs_s": runs_s, "wall_s": wall}
 
 
 # ---- Bulletproofs, Hyrax and Libra on the discrete-log layer (phase_dl) ----
@@ -3071,7 +3359,7 @@ def _round_trip(curve, label, values: dict) -> dict:
 
 
 def bulletproofs_run(card: str, label: str, curve_name: str, log_c: int,
-                     profile: bool = False, on_proved=None) -> dict:
+                     profile: bool = False) -> dict:
     """Bulletproofs on the card through `create_random_proof` (the 2N + 3
     generators on K6 or the host, the dense R1CS, the prove; its stages
     timed): the square chain of 2^log_c constraints and as many witnesses;
@@ -3111,12 +3399,10 @@ def bulletproofs_run(card: str, label: str, curve_name: str, log_c: int,
                 else [contracts.OK, contracts.ERR_VERIFY])
         return verdicts, want, {"cell_bytes": len(cell), "N": gens.N}
 
-    return dl_run(card, label, "bulletproofs", curve, 1 << log_c, None, prove, finish, profile,
-                  on_proved)
+    return dl_run(card, label, "bulletproofs", curve, 1 << log_c, None, prove, finish, profile)
 
 
-def hyrax_run(card: str, label: str, log_n: int, profile: bool = False,
-              on_proved=None) -> dict:
+def hyrax_run(card: str, label: str, log_n: int, profile: bool = False) -> dict:
     """Hyrax on the card: 2^log_n instances of the test circuit with random
     inputs and witnesses; `Parameters.new` (`gen_n` on K6), the hashes, the
     prove (its stages timed); the parameters, proof and (inputs, outputs)
@@ -3166,16 +3452,16 @@ def hyrax_run(card: str, label: str, log_n: int, profile: bool = False,
         return verdicts, [contracts.OK, contracts.ERR_VERIFY], {
             "proof_bytes": len(cells["proof"]), "params_bytes": len(cells["params"])}
 
-    return dl_run(card, label, "hyrax", curve, n, make, prove, finish, profile, on_proved)
+    return dl_run(card, label, "hyrax", curve, n, make, prove, finish, profile)
 
 
-def libra_run(card: str, label: str, kind: str, log_copies: int, profile: bool = False,
-              on_proved=None) -> dict:
+def libra_run(card: str, label: str, kind: str, log_copies: int,
+              profile: bool = False) -> dict:
     """Libra on the card, `kind` "zk" or "plain", on
     `libra_copies_circuit(2^log_copies)` with random inputs and witnesses
     (the same for both kinds): the circuit and its hash (zk: and
     `Parameters.new`, `gen_n` on K6, with its hash), the prove (its stages
-    timed; `on_proved` runs after it); zk: the parameters, proof and
+    timed); zk: the parameters, proof and
     (inputs, outputs) through their ark bytes and back, and the contract
     verifier on those cells with `circuit=`: OK, and ERR_VERIFY on a
     changed output; plain: `verify` and the refusal of a changed output."""
@@ -3242,15 +3528,14 @@ def libra_run(card: str, label: str, kind: str, log_copies: int, profile: bool =
             "proof_bytes": len(cells["proof"]), "params_bytes": len(cells["params"])}
 
     return dl_run(card, label, f"libra {kind}", curve, copies, make, prove,
-                  finish_zk if kind == "zk" else finish_plain, profile, on_proved)
+                  finish_zk if kind == "zk" else finish_plain, profile)
 
 
-def dl_run(card, label, scheme, curve, size, make, prove, finish, profile,
-           on_proved) -> dict:
+def dl_run(card, label, scheme, curve, size, make, prove, finish, profile) -> dict:
     """One run of phase_dl (`bulletproofs_run`, `hyrax_run`, `libra_run`):
     `make(setup_timings)` (the setup and the hashes, where the scheme has
     them apart from its prover), `prove(timings)` (under the profiler with
-    `profile`; then `on_proved()`), then `finish(out, secs)` -> (verdicts,
+    `profile`), then `finish(out, secs)` -> (verdicts,
     the verdicts wanted, facts),
     counting the device and host calls of the MSMs over a generator list
     and of the sumchecks (`device_calls_counted`), the K1-K6 launches (the
@@ -3284,8 +3569,6 @@ def dl_run(card, label, scheme, curve, size, make, prove, finish, profile,
             secs["prove"] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         prove_counts = dict(counts)
-        if on_proved is not None:
-            on_proved()
         verdicts, want, facts = finish(out, secs)
     launches = {k: cuda_build.COUNTS[k] - cuda_build.WIDE[k] for k in DL_KERNELS}
     wide = {k: cuda_build.WIDE[k] for k in DL_KERNELS}
@@ -3318,13 +3601,13 @@ def start_dl_run(card: str, label: str):
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def dl_run_of(card: str, label: str, profile: bool = False, on_proved=None) -> dict:
+def dl_run_of(card: str, label: str, profile: bool = False) -> dict:
     _, scheme, curve_name, log2 = next(r for r in DL_RUNS if r[0] == label)
     if scheme == "bulletproofs":
-        return bulletproofs_run(card, label, curve_name, log2, profile, on_proved)
+        return bulletproofs_run(card, label, curve_name, log2, profile)
     if scheme == "hyrax":
-        return hyrax_run(card, label, log2, profile, on_proved)
-    return libra_run(card, label, scheme.split("_")[1], log2, profile, on_proved)
+        return hyrax_run(card, label, log2, profile)
+    return libra_run(card, label, scheme.split("_")[1], log2, profile)
 
 
 DL_SCHEMES = ("bulletproofs", "hyrax", "libra")
@@ -3417,35 +3700,34 @@ def start_dl_mini_cpu():
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def phase_dl(card: str, cpu_child) -> dict:
+def start_dl_runs(card: str) -> dict:
+    """DL_RUNS' (d), (e), (f) and (g)'s plain half, each in a child process
+    on the card, started beside the Spartan phase; `phase_dl` reads them."""
+    return {label: start_dl_run(card, label) for label in ("d", "e", "f", "g_plain")}
+
+
+def phase_dl(card: str, cpu_child, children: dict) -> dict:
     """Bulletproofs, Hyrax and Libra on the card: the runs of DL_RUNS. (g)
-    runs in this process, its zk prove alone under the profiler; once that
-    prove is done, (d), (e), (f) and (g)'s plain half start in child
-    processes beside the rest of (g), after which this process makes the
-    card's Mini proofs (thresholds at 2; not at the children's start, where
-    their thousands of small launches would share the card with (e)'s
-    commitments). The Mini bytes must equal the CPU child's. Every run must make device MSMs, (f) and
-    (g) device sumcheck rounds; (d) must launch K1, K2, K5 and K6, (e) K1
-    at 2^255 - 19, (f) and (g) the 12-word K2, K5 and K6 and Fr's K1.
-    Returns the runs, the 8-word and 12-word K1-K6 launches of the four
-    together and (e)'s K1 launches by field."""
+    runs in this process, its zk prove under the profiler, beside (d),
+    (e), (f) and (g)'s plain half in the child processes of
+    `start_dl_runs`; then this process makes the card's Mini proofs
+    (thresholds at 2) and reads the children. The Mini bytes must equal the
+    CPU child's. Every run must make device MSMs, (f) and (g) device
+    sumcheck rounds; (d) must launch K1, K2, K5 and K6, (e) K1 at
+    2^255 - 19, (f) and (g) the 12-word K2, K5 and K6 and Fr's K1. Returns
+    the runs, the 8-word and 12-word K1-K6 launches of the four together
+    and (e)'s K1 launches by field."""
     import torch
 
     t0 = time.perf_counter()
-    children: dict = {}
-
-    def start_children():
-        children.update({label: start_dl_run(card, label)
-                         for label in ("d", "e", "f", "g_plain")})
-
     try:
-        runs = {"g": dl_run_of(card, "g", profile=True, on_proved=start_children)}
+        runs = {"g": dl_run_of(card, "g", profile=True)}
         torch.cuda.empty_cache()
         g_s = time.perf_counter() - t0
         got = dl_mini_proofs(DEVICE)
         mini_s = time.perf_counter() - t0 - g_s
-        for label in ("d", "e", "f", "g_plain"):
-            runs[label] = finish_run(children[label], label)
+        for label, child in children.items():
+            runs[label] = finish_run(child, label)
     finally:
         for child in children.values():
             if child.poll() is None:
@@ -3473,7 +3755,7 @@ def phase_dl(card: str, cpu_child) -> dict:
                              f"{[k for k in got if got[k] != want.get(k)]}")
     log(f"dl mini (thresholds at 2): Bulletproofs on bn254 and curve25519, Hyrax, Libra "
         f"plain and zk: the card's proofs equal the port's CPU ones; all verify, changed "
-        f"inputs and outputs refused; (g) {g_s:.3f} s wall (its zk prove alone), then the "
+        f"inputs and outputs refused; (g) {g_s:.3f} s wall (beside the children), then the "
         f"card's Mini proofs {mini_s:.3f} s, the phase {wall:.3f} s wall [{card}]")
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in DL_KERNELS}
     wide = {k: sum(r["wide"][k] for r in runs.values()) for k in DL_KERNELS}
@@ -3771,14 +4053,11 @@ def cbmt_run(card: str, n_lemmas: int = CBMT_LEMMAS) -> dict:
     return out
 
 
-def phase_cli(card: str, cpu_child) -> dict:
-    """The CLI on the card: `cli_chain` (four processes through the module
-    entry point) in a thread beside `cli_runs` and then the SHA-256 CBMT
-    circuit (`cbmt_run`) in this process; every command's launches against
-    CLI_NEEDS; the setup files and proof JSONs (sha256 of each file) equal
-    to the CPU child's for the same seeds; the native verifiers on the
-    CLI's cells (`native_checks`). Returns the CLI commands' launches
-    (8-word, and "_nw12"), their K1 launches by field, and the figures."""
+def cli_card(card: str) -> dict:
+    """The CLI's work on the card: `cli_chain` (four processes through the
+    module entry point) in a thread beside `cli_runs` and then the SHA-256
+    CBMT circuit (`cbmt_run`), each in this process with its own launch
+    counts. Returns their results and seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -3789,6 +4068,33 @@ def phase_cli(card: str, cpu_child) -> dict:
         cbmt = cbmt_run(card)
         cbmt_s = time.perf_counter() - t0 - runs_s
         chain_s = chain.result()
+    return {"run": run, "cbmt": cbmt, "chain_s": chain_s, "runs_s": runs_s, "cbmt_s": cbmt_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def start_cli_card(card: str):
+    """`cli_card` in a child process, started beside the DL phase's (g);
+    `phase_cli` reads it."""
+    import subprocess
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "print(json.dumps(chip_smoke.cli_card(sys.argv[2])))")
+    return subprocess.Popen([sys.executable, "-c", code, REPO, card], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_cli(card: str, cpu_child, card_child) -> dict:
+    """The CLI on the card: `cli_card`'s results from its child process
+    (`start_cli_card`); every command's launches against CLI_NEEDS; the
+    setup files and proof JSONs (sha256 of each file) equal to the CPU
+    child's for the same seeds; the native verifiers on the CLI's cells
+    (`native_checks`). Returns the CLI commands' launches (8-word, and
+    "_nw12"), their K1 launches by field, and the figures."""
+    t0 = time.perf_counter()
+    got = finish_run(card_child, "cli")
+    wait_s = time.perf_counter() - t0
+    run, cbmt = got["run"], got["cbmt"]
+    chain_s, runs_s, cbmt_s = got["chain_s"], got["runs_s"], got["cbmt_s"]
     missing = {f"{label} {cmd}": [k for k in need if run["launches"][f"{label} {cmd}"].get(k, 0) <= 0]
                for label, cmds in CLI_NEEDS.items() for cmd, need in cmds.items()}
     missing = {k: v for k, v in missing.items() if v}
@@ -3809,8 +4115,9 @@ def phase_cli(card: str, cpu_child) -> dict:
         f"{json.dumps({k: v[0] for k, v in run['files'].items()})}")
     log(f"cli native verifiers (0 / 2 / 1, equal to the contracts'): {json.dumps(codes)}")
     log(f"cbmt (SHA-256 membership, Groth16 BN254): {json.dumps(cbmt)} [{card}]")
-    log(f"cli phase: the in-process commands {runs_s:.3f} s wall, then cbmt {cbmt_s:.3f} s "
-        f"(the chain beside both), the phase {time.perf_counter() - t0:.3f} s [{card}]")
+    log(f"cli phase: the child's commands {runs_s:.3f} s wall, then cbmt {cbmt_s:.3f} s "
+        f"(the chain beside both), {got['wall_s']:.3f} s in all, read {wait_s:.3f} s after "
+        f"the DL phase; the phase {time.perf_counter() - t0:.3f} s [{card}]")
     return {"launches": run["totals"], "k1": run["k1"], "seconds": run["seconds"],
             "chain_s": chain_s, "cbmt": cbmt, "runs_s": runs_s, "cbmt_s": cbmt_s}
 
@@ -4134,6 +4441,7 @@ def run_phases(args, children: list) -> int:
 
     from ckb_zkp_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     card = smi()
     rate = imad_rate()
     log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4178,48 +4486,59 @@ def run_phases(args, children: list) -> int:
     t3 = time.perf_counter()
     jac = phase_jacobian(card, run, args.log2)
     leaf = phase_jacobian_leaf(card)
-    run.pop("params")  # the BN254 keys' device memory, before the Marlin phase
+    t3p = time.perf_counter()
+    par = phase_parallel(card, run, args.log2)
+    log(f"parallel phase seconds: {json.dumps(par['seconds'])} [{card}]")
+    run.pop("params")  # the BN254 keys' device memory, before the BLS12-381 phase
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
+    # BLS12-381 times its 12-word kernel rows before any other process uses the card
+    wide = phase_wide(results, card, args.log2)
+    torch.cuda.empty_cache()
+    # from here on, child processes run beside this one: the Spartan runs beside
+    # Marlin, PLONK and aSVC, the DL children beside the Spartan phase and (g),
+    # the CLI's beside (g)
+    spartan_runs = start_spartan_runs(card)
+    children += spartan_runs.values()
+    t5 = time.perf_counter()
     mar = phase_marlin(card, min(MARLIN_LOG2, args.log2))
     torch.cuda.empty_cache()
     kzg_wide = phase_kzg_wide(card, min(KZG_WIDE_LOG2, args.log2))
     torch.cuda.empty_cache()
     log(f"marlin phase seconds: {json.dumps(mar['seconds'])} [{card}]")
-    t5 = time.perf_counter()
+    t6 = time.perf_counter()
     plonk = phase_plonk(card, min(PLONK_LOG2, args.log2))
     torch.cuda.empty_cache()
     # the CPU child's Mini proofs, read here, where it has had the Marlin and PLONK phases
     cpu_proofs = phase_marlin_mini(card, cpu_child)
     phase_plonk_reference(card, cpu_proofs["plonk"])
     log(f"plonk phase seconds: {json.dumps(plonk['seconds'])} [{card}]")
-    t6 = time.perf_counter()
+    t6s = time.perf_counter()
     asvc_run = phase_asvc(card, min(ASVC_LOG2, args.log2))
     torch.cuda.empty_cache()
-    t6s = time.perf_counter()
-    wide = phase_wide(results, card, args.log2)
-    torch.cuda.empty_cache()
     t7 = time.perf_counter()
-    spartan = phase_spartan(card, spartan_child)
-    torch.cuda.empty_cache()
+    dl_runs = start_dl_runs(card)
+    children += dl_runs.values()
+    spartan = phase_spartan(card, spartan_child, spartan_runs)
     log(f"spartan phase seconds: {json.dumps({k: r['seconds'] for k, r in spartan['runs'].items()})}"
         f" [{card}]")
     t8 = time.perf_counter()
-    dl = phase_dl(card, dl_child)
+    cli_card_child = start_cli_card(card)
+    children.append(cli_card_child)
+    dl = phase_dl(card, dl_child, dl_runs)
     torch.cuda.empty_cache()
     log(f"dl phase seconds: {json.dumps({k: r['seconds'] for k, r in dl['runs'].items()})}"
         f" [{card}]")
     t8d = time.perf_counter()
-    cli = phase_cli(card, cli_child)
-    torch.cuda.empty_cache()
+    cli = phase_cli(card, cli_child, cli_card_child)
     t8c = time.perf_counter()
     probes = phase_probes(results, args.log2 + 1)
     t9 = time.perf_counter()
     log(f"phase seconds: kernels {t1 - t0:.3f}, setup check {t2 - t1:.3f}, "
-        f"slice {t3 - t2:.3f}, jacobian {t4 - t3:.3f}, marlin {t5 - t4:.3f}, "
-        f"plonk {t6 - t5:.3f}, asvc {t6s - t6:.3f}, bls12_381 {t7 - t6s:.3f}, "
-        f"spartan {t8 - t7:.3f}, dl {t8d - t8:.3f}, cli {t8c - t8d:.3f}, "
-        f"probes {t9 - t8c:.3f} [{card}]")
+        f"slice {t3 - t2:.3f}, jacobian {t3p - t3:.3f}, parallel {t4 - t3p:.3f}, "
+        f"bls12_381 {t5 - t4:.3f}, marlin {t6 - t5:.3f}, plonk {t6s - t6:.3f}, "
+        f"asvc {t7 - t6s:.3f}, spartan {t8 - t7:.3f}, dl {t8d - t8:.3f}, cli {t8c - t8d:.3f}, "
+        f"probes {t9 - t8c:.3f}; build to the last phase {t9 - t_start:.3f} [{card}]")
     table = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
@@ -4239,7 +4558,9 @@ def run_phases(args, children: list) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
             | ({"marlin_launches": mar["launches"][name],
-                "plonk_launches": plonk["launches"][name]} if name in MARLIN_KERNELS else {})
+                "plonk_launches": plonk["launches"][name],
+                "parallel_launches": par["p1"]["launches"].get(name, 0)}
+               if name in MARLIN_KERNELS else {})
             | ({"spartan_launches": spartan["launches"][name]} if name in SPARTAN_KERNELS
                else {})
             | ({"dl_launches": dl["launches"][name]} if name in DL_KERNELS else {})
@@ -4262,6 +4583,7 @@ def run_phases(args, children: list) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name],
+            "parallel_launches": sum(g["wide"].get(name, 0) for g in par["p3"].values()),
             "dl_launches": dl["wide"][name], "cli_launches": cli["launches"][row]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     for row, field_name in (("mont_mul_25519_fq", "curve25519_fq"),

@@ -11,9 +11,14 @@ element) and reads 4 NW bytes per operand row with 16-byte vector loads.
 A broadcast operand (a constant such as R^2 or a twiddle row of length
 1) is read with a zero element step instead of being materialized.
 
-The plain version is the reference's XLA path (`ops/field.py:123-179`) in
-int64: skewed schoolbook columns, flat carry resolution, SOS reduction and
-one conditional subtract.
+The plain version follows the reference's XLA path (`ops/field.py:123-179`):
+schoolbook columns, SOS reduction and one conditional subtract. Its limbs
+are float64 integers below 2^53, so every sum is exact: the columns of
+a * b come from L row updates (a few rows: one product with b's Toeplitz
+view), m = t n' mod R and m p are matrix products with constant Toeplitz
+matrices, and the carry out of the low half, an exact integer since that
+half is 0 mod R, is one rounded dot product. On the CPU rows run in
+blocks of PLAIN_BLOCK, whose columns stay in cache.
 """
 
 from __future__ import annotations
@@ -22,14 +27,11 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .limbs import carry_pass, carry_propagate, ks_resolve, product_cols
-
-
-def const_cols(a: torch.Tensor, toeplitz: torch.Tensor) -> torch.Tensor:
-    """Column sums of a * constant (int64 limbs), exact in float64."""
-    return (a.to(torch.float64) @ toeplitz).to(torch.int64)
+from .limbs import BASE_BITS, ks_resolve
 
 MAXW = 12
+PLAIN_BLOCK = 1 << 11  # rows of a plain K1 block on the CPU (a card takes all at once)
+_FEW_ROWS = 256  # below this, a block's columns come from one Toeplitz product
 
 
 def kernel_consts(df, b3_small: int = 0, b3_mont=None) -> np.ndarray:
@@ -87,23 +89,57 @@ def mont_mul(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mont_mul_plain(df, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K1: int32 limbs in, canonical int32 limbs out."""
-    t = carry_pass(product_cols(a.to(torch.int64), b.to(torch.int64), 2 * df.L))
-    return mont_reduce(df, t).to(torch.int32)
-
-
-def mont_reduce(df, t: torch.Tensor) -> torch.Tensor:
-    """2L int64 limbs of t < R p (each limb <= MASK + 63, not necessarily
-    canonical) -> t R^-1 mod p, SOS form: m = t n' mod R; (t + m p) / R.
-
-    m is only carry-passed, not resolved: its value stays below 1.01 R, so
-    t + m p < (p/R + 1.01) R p < 2 R p and one conditional subtract ends it.
-    Every float64 column sum stays below 2^37, so the products are exact."""
+    """Plain PyTorch K1: int32 limbs in (a * b < R p), canonical int32 out."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
     L = df.L
-    c = df.consts(t.device)
-    m = carry_pass(const_cols(t[..., :L], c["nprime_t"][:, :L]))
-    s = carry_propagate(const_cols(m, c["p_t"]) + t)  # low half is zero
-    return cond_sub_p(df, s[..., L:])
+    A = a.to(torch.float64).expand(shape).reshape(-1, L)
+    B = b.to(torch.float64).expand(shape).reshape(-1, L)
+    c = df.consts(A.device)
+    n = A.shape[0]
+    step = PLAIN_BLOCK if A.device.type == "cpu" else max(n, 1)
+    if n <= step:
+        return _mont_block(df, A, B, c).reshape(shape)
+    out = torch.empty((n, L), dtype=torch.int32, device=A.device)
+    for i in range(0, n, step):
+        out[i : i + step] = _mont_block(df, A[i : i + step], B[i : i + step], c)
+    return out.reshape(shape)
+
+
+def _carry_f64(x: torch.Tensor, c: dict) -> torch.Tensor:
+    """One carry pass over float64 integer limbs (a matrix product): each
+    limb keeps its low 16 bits and hands the rest one limb up; the top
+    limb's excess is dropped."""
+    return torch.addmm(x, torch.floor_(x * (1.0 / (1 << BASE_BITS))), c["carry_t"])
+
+
+def _product_cols(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(n, 2L) schoolbook columns of a * b (float64 limbs), each < L 2^32."""
+    n, L = A.shape
+    if n < _FEW_ROWS:
+        Bp = torch.nn.functional.pad(B, (L, L))
+        toeplitz = Bp.as_strided((n, L, 2 * L), (3 * L, 1, 1), 1)  # [j, k] = b[k + j + 1 - L]
+        return (A.flip(-1).unsqueeze(-1) * toeplitz).sum(1)
+    T = A.new_zeros((n, 2 * L))
+    for i in range(L):
+        T[:, i : i + L].addcmul_(A[:, i : i + 1], B)
+    return T
+
+
+def _mont_block(df, A: torch.Tensor, B: torch.Tensor, c: dict) -> torch.Tensor:
+    """a * b R^-1 mod p for a block of float64 limb rows, as int32 limbs.
+
+    t's low half, carried once (limbs < 2^22), times n' gives columns below
+    2^42; two carries leave m = t n' mod R below 1.02 R, so (p < R / 2)
+    t + m p < 2 R p, with columns below 2^39. The low half of t + m p is
+    c R exactly; the high half plus c, carried once (limbs < 2^24), is
+    h < 2p: h or h - p, resolved in one pass (`_pick`)."""
+    L = A.shape[1]
+    T = _product_cols(A, B)
+    m = _carry_f64(_carry_f64(_carry_f64(T[:, :L], c) @ c["nprime_t"], c), c)
+    T.addmm_(m, c["p_t"])
+    H = T[:, L:]
+    H[:, 0] += torch.round(T[:, :L] @ c["low_w"])
+    return df._pick(_carry_f64(H, c).to(torch.int32), c["comp32"], False)
 
 
 def cond_sub_p(df, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 
 from .cuda_field import mont_mul, mont_mul_plain
 from .limbs import (
+    BASE,
     BASE_BITS,
     MASK,
     int_to_limbs,
@@ -26,6 +27,7 @@ from .limbs import (
     ks_resolve,
     limbs_to_ints,
     nlimbs_for,
+    scalars,
     toeplitz_cols,
 )
 from .scan_utils import hs_scan
@@ -81,8 +83,14 @@ class DeviceField:
                 "p32": t(self.p_limbs).to(torch.int32),
                 "comp32": t(self._comp_p1).to(torch.int32),
                 "e032": t(e0).to(torch.int32),
+                # the plain K1's float64 constants: m p, t n' mod R, the low
+                # half's carry (limb k weighs 2^(16 (k - L)))
                 "p_t": toeplitz_cols(self.p_limbs, device),
-                "nprime_t": toeplitz_cols(self.nprime_limbs, device),
+                "nprime_t": toeplitz_cols(self.nprime_limbs, device)[:, : self.L].contiguous(),
+                "low_w": torch.tensor([2.0 ** (BASE_BITS * (k - self.L)) for k in range(self.L)],
+                                      dtype=torch.float64, device=device),
+                "carry_t": (torch.diag(torch.ones(self.L - 1, dtype=torch.float64), 1)
+                            - BASE * torch.eye(self.L, dtype=torch.float64)).to(device),
             }
         return c
 
@@ -132,16 +140,18 @@ class DeviceField:
         """Resolve t and t + k (limbs <= 3 MASK + 1) in one stacked pass and
         return t + k where an add's t + k carries out (t >= p) or a sub's t
         does not (a borrow), else t; both mod R."""
-        x = torch.stack(torch.broadcast_tensors(t, t + k))
-        hi = x >> BASE_BITS
-        x = x & MASK
+        tk = t + k
+        x = torch.stack((t, tk) if tk.shape == t.shape else torch.broadcast_tensors(t, tk))
+        bits, mask, _ = scalars(x.device, x.dtype)
+        hi = torch.bitwise_right_shift(x, bits)
+        x = torch.bitwise_and(x, mask)
         x[..., 1:] += hi[..., :-1]  # limbs <= MASK + 2
         out, c = ks_resolve(x)
-        carry = c + hi[..., -1]
+        carry = (c + hi[..., -1]).bool()
         if isinstance(neg, bool):
-            use_k = carry[0] == 0 if neg else carry[1] > 0
+            use_k = carry[0].logical_not() if neg else carry[1]
         else:
-            use_k = torch.where(neg, carry[0] == 0, carry[1] > 0)
+            use_k = torch.where(neg, carry[0].logical_not(), carry[1])
         return torch.where(use_k.unsqueeze(-1), out[1], out[0])
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:

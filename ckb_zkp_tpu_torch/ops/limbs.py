@@ -93,16 +93,31 @@ def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
 # loops, so the same op sequence runs on CPU and CUDA tensors.
 
 def _aranges(nl: int, device, dtype):
-    """(arange(nl), 2^arange(nl)) on `device`, cached."""
-    key = (nl, str(device), dtype)
+    """(arange(nl + 1), 2^arange(nl)) on `device`, cached."""
+    key = (nl, device, dtype)
     t = _ARANGE_CACHE.get(key)
     if t is None:
-        ar = torch.arange(nl, dtype=torch.int64)
-        t = _ARANGE_CACHE[key] = (ar.to(device, dtype), (1 << ar).to(device, dtype))
+        ar = torch.arange(nl + 1, dtype=torch.int64)
+        t = _ARANGE_CACHE[key] = (ar.to(device, dtype), (1 << ar[:nl]).to(device, dtype))
     return t
 
 
 _ARANGE_CACHE: dict = {}
+
+
+def scalars(device, dtype) -> tuple:
+    """(BASE_BITS, MASK, 1) as 0-dim tensors on `device`, cached: an
+    elementwise op with a tensor operand skips the wrapping of a Python
+    number, most of a small op's cost on the CPU."""
+    key = (device, dtype)
+    s = _SCALAR_CACHE.get(key)
+    if s is None:
+        s = _SCALAR_CACHE[key] = tuple(torch.tensor(v, dtype=dtype, device=device)
+                                       for v in (BASE_BITS, MASK, 1))
+    return s
+
+
+_SCALAR_CACHE: dict = {}
 
 
 def ks_resolve(t: torch.Tensor):
@@ -112,18 +127,19 @@ def ks_resolve(t: torch.Tensor):
     Returns (canonical limbs, carry_out). The carry recurrence
     c_{i+1} = g_i | (p_i & c_i) is the carry vector of the integer sum
     G + (G | P) over the bit-packed masks (g = limb overflow, p = limb ==
-    MASK), recovered as S ^ G ^ (G | P). The masks fit one word: nl <= 30
-    for int32, nl <= 62 for int64.
+    MASK), recovered as S ^ G ^ (G | P). A limb of 2*MASK + 1 has g set,
+    so G | P is the same with p = (limb == MASK). The masks fit one word:
+    nl <= 30 for int32, nl <= 62 for int64.
     """
     nl = t.shape[-1]
     assert nl <= (30 if t.dtype == torch.int32 else 62)
     ar, w = _aranges(nl, t.device, t.dtype)
-    G = ((t >> BASE_BITS) * w).sum(-1, dtype=t.dtype)
-    P = (((t & MASK) == MASK) * w).sum(-1, dtype=t.dtype)
-    GP = G | P
+    bits, mask, one = scalars(t.device, t.dtype)
+    G = (torch.bitwise_right_shift(t, bits) * w).sum(-1, dtype=t.dtype)
+    GP = G | ((t == mask) * w).sum(-1, dtype=t.dtype)
     c = (G + GP) ^ G ^ GP  # bit i = carry into limb i
-    cb = (c.unsqueeze(-1) >> ar) & 1
-    return (t + cb) & MASK, (c >> nl) & 1
+    cb = torch.bitwise_and(torch.bitwise_right_shift(c.unsqueeze(-1), ar), one)  # bits 0..nl
+    return torch.bitwise_and(t + cb[..., :nl], mask), cb[..., nl]
 
 
 def carry_pass(x: torch.Tensor, passes: int = 2) -> torch.Tensor:

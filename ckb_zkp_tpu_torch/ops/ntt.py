@@ -61,27 +61,35 @@ class Domain:
             w = df.sqr(w)
         return table[: self.n]
 
-    def fft(self, x: torch.Tensor, *, inverse: bool = False, coset: bool = False):
-        """coset=True: forward evaluates on gH; inverse interpolates from gH."""
+    def fft(self, x: torch.Tensor, *, inverse: bool = False, coset: bool = False,
+            dim: int = 0):
+        """coset=True: forward evaluates on gH; inverse interpolates from gH.
+
+        x holds n elements along `dim`; the other dims before the limbs are
+        a batch of independent transforms (the four-step's row and column
+        transforms, the reference's `jax.vmap` of `_fft_impl`)."""
         df, n, L = self.df, self.n, self.df.L
-        assert x.shape[0] == n, (x.shape, n)
+        assert x.shape[dim] == n and x.shape[-1] == L, (x.shape, n, dim)
+        x = x.movedim(dim, 0)
+        batch = x.shape[1:-1]
+        x = x.reshape(n, -1, L)
         if coset and not inverse:
-            x = df.mul(x, self._pows[self.coset_g])
+            x = df.mul(x, self._pows[self.coset_g].unsqueeze(1))
         if n > 1:
             table = self._pows[self.omega_inv if inverse else self.omega]
             for s in range(n.bit_length() - 1):
                 half = n >> (s + 1)
-                y = x.reshape(-1, 2, half, L)
+                y = x.reshape(-1, 2, half, *x.shape[1:])
                 a, b = y[:, 0], y[:, 1]
                 top = df.add(a, b)
-                bot = df.mul(df.sub(a, b), table[:: 1 << s][:half].unsqueeze(0))
-                x = torch.stack([top, bot], dim=1).reshape(n, L)
+                bot = df.mul(df.sub(a, b), table[:: 1 << s][:half].unsqueeze(1).unsqueeze(0))
+                x = torch.stack([top, bot], dim=1).reshape(x.shape)
             x = x[self._bitrev]
         if inverse:
             x = df.mul(x, df.const(self.n_inv, (1,)))
             if coset:
-                x = df.mul(x, self._pows[self.coset_g_inv])
-        return x
+                x = df.mul(x, self._pows[self.coset_g_inv].unsqueeze(1))
+        return x.reshape(n, *batch, L).movedim(0, dim)
 
     def ntt(self, coeffs):
         return self.fft(coeffs)

@@ -21,6 +21,7 @@ import torch
 
 from ...ops.limbs import ints_to_limbs
 from ...ops.msm import device_group
+from ...parallel import get_sharded_domain, msm_sharded
 from ...r1cs import ConstraintSynthesizer, SynthesisMode, synthesize
 from .qap import qap_matrices
 from .types import Parameters, Proof
@@ -45,11 +46,15 @@ def create_proof(params: Parameters, circuit: ConstraintSynthesizer, r: int,
 
 
 class Stages:
-    """Per-stage wall-clock seconds, synchronizing the card at each mark."""
+    """Per-stage wall-clock seconds, synchronizing the card at each mark.
+    With a mesh, the seconds its collectives took inside a stage are taken
+    out of the stage and kept as `<stage>_collectives`."""
 
-    def __init__(self, out: dict | None, device):
+    def __init__(self, out: dict | None, device, mesh=None):
         self.out = out
         self.cuda = torch.device(device).type == "cuda"
+        self.mesh = mesh
+        self.coll = mesh.stats["seconds"] if mesh is not None else 0.0
         self.t = time.perf_counter()
 
     def mark(self, name: str):
@@ -60,6 +65,12 @@ class Stages:
         now = time.perf_counter()
         self.out[name] = now - self.t
         self.t = now
+        if self.mesh is not None:
+            coll = self.mesh.stats["seconds"]
+            if coll > self.coll:
+                self.out[name] -= coll - self.coll
+                self.out[name + "_collectives"] = coll - self.coll
+            self.coll = coll
 
     def add(self, name: str):
         """`mark`, adding to the seconds `name` already holds (a stage
@@ -84,17 +95,25 @@ def _fit_h(h_can, rows: int):
 
 
 def create_proof_from_shape(params, shape, r: int, s: int,
-                            timings: dict | None = None):
+                            timings: dict | None = None, mesh=None):
     """Proof for `shape`'s assignment under `params`, with randomness r, s.
 
     `timings`, when given, receives per-stage seconds (qap: the shape's
     kept device matrices, built on its first prove; witness_limbs,
     witness_map, msm_a, msm_b_g2, msm_b_g1, msm_h, msm_l, decode,
-    final_algebra)."""
+    final_algebra).
+
+    `mesh` (`parallel.make_mesh()`, one rank per device, every rank
+    calling with the same arguments) shards the prove as the reference's
+    `mesh=` branch (`prover.py:124-164`): the witness map's transforms on
+    the sharded domain where m >= d^2 (the four-step needs d | n1 and
+    d | n2), all five MSMs on `msm_sharded`. Every rank returns the same
+    proof; `timings` then also holds `<stage>_collectives`, the seconds of
+    the stage's collectives."""
     curve = params.curve
     p = curve.fr.modulus
     device = params.a_query[0].device
-    st = Stages(timings, device)
+    st = Stages(timings, device, mesh)
     qap = qap_matrices(shape, curve.fr, device)
     qap.device_parts()
     assert qap.m == params.domain_size, "circuit does not match parameters"
@@ -111,26 +130,35 @@ def create_proof_from_shape(params, shape, r: int, s: int,
     z_can = torch.as_tensor(raw.astype(np.int32), device=device)
     st.mark("witness_limbs")
 
+    sdom = None
+    msm1, msm2 = dg1.msm, dg2.msm
+    if mesh is not None:
+        d = mesh.size
+        if qap.m >= d * d:
+            sdom = get_sharded_domain(curve.fr, qap.m, mesh, device)
+        msm1 = lambda pts, scl: msm_sharded(dg1, pts, scl, mesh)  # noqa: E731
+        msm2 = lambda pts, scl: msm_sharded(dg2, pts, scl, mesh)  # noqa: E731
     hpad = max(qap.num_cols_pad, qap.m) if padded else qap.m
-    h_can = qap.witness_map(z_can, out_len=hpad)
+    h_can = (qap.witness_map(z_can, out_len=hpad) if sdom is None
+             else qap.witness_map(z_can, out_len=hpad, sdom=sdom))
     h_can = _fit_h(h_can, params.h_query[0].shape[0] if padded else qap.m - 1)
     st.mark("witness_map")
 
-    ga_acc = dg1.msm(params.a_query, z_can)
+    ga_acc = msm1(params.a_query, z_can)
     st.mark("msm_a")
-    gb2_acc = dg2.msm(params.b_g2_query, z_can)
+    gb2_acc = msm2(params.b_g2_query, z_can)
     st.mark("msm_b_g2")
     gb1_acc = None
     if r != 0:
         # with r == 0, C has no r*B1 term and the reference skips the G1
         # b-query MSM (prover.rs:170-179)
-        gb1_acc = dg1.msm(params.b_g1_query, z_can)
+        gb1_acc = msm1(params.b_g1_query, z_can)
         st.mark("msm_b_g1")
-    h_acc = dg1.msm(params.h_query, h_can)
+    h_acc = msm1(params.h_query, h_can)
     st.mark("msm_h")
     # padded l_query holds infinity at input slots, so the full z pairs
     # correctly; exact keys pair the aux scalars only
-    l_acc = dg1.msm(params.l_query, z_can if padded else z_can[ni:])
+    l_acc = msm1(params.l_query, z_can if padded else z_can[ni:])
     st.mark("msm_l")
 
     ga = dg1.decode_point(ga_acc)

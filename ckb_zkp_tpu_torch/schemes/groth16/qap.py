@@ -20,6 +20,7 @@ import torch
 from ...ops.field import device_field
 from ...ops.ntt import get_domain
 from ...ops.sparse import DeviceCoo, aligned_cols
+from ...parallel.mesh import all_gather_cat
 
 
 def domain_size_for(shape) -> int:
@@ -123,19 +124,34 @@ class QapMatrices:
             out.append(acc)
         return tuple(out)
 
-    def witness_map(self, z_can: torch.Tensor, out_len: int) -> torch.Tensor:
+    def witness_map(self, z_can: torch.Tensor, out_len: int, sdom=None) -> torch.Tensor:
         """Canonical witness limbs (>= num_vars, L) -> canonical h (out_len, L).
 
         to_mont, three sparse matvecs, intt + coset_ntt of each, the
         pointwise quotient by the vanishing polynomial on the coset,
         coset_intt and from_mont (the reference's hot loop 1,
-        r1cs_to_qap.rs:113-172). Rows from m - 1 up are zero."""
+        r1cs_to_qap.rs:113-172). Rows from m - 1 up are zero.
+
+        With `sdom` (a `parallel.ShardedDomain` over the prover's mesh) the
+        matvecs stay replicated, as the reference's (`qap.py:194-201`);
+        each rank takes its row block of a, b and c through the sharded
+        coset transforms, forms the quotient and interpolates its block of
+        h, and the blocks are all-gathered, so every rank returns the whole
+        h, which the sharded MSM cuts by its own rule."""
         df = self.df
         (a, b, c), dom = self.device_parts()
         z = df.to_mont(z_can)
-        ea, eb, ec = (dom.coset_ntt(dom.intt(mat.matvec(z))) for mat in (a, b, c))
-        q = dom.divide_by_vanishing_poly_on_coset(df.sub(df.mul(ea, eb), ec))
-        h = df.from_mont(dom.coset_intt(q))
+        if sdom is None:
+            ea, eb, ec = (dom.coset_ntt(dom.intt(mat.matvec(z))) for mat in (a, b, c))
+            q = dom.divide_by_vanishing_poly_on_coset(df.sub(df.mul(ea, eb), ec))
+            h = df.from_mont(dom.coset_intt(q))
+        else:
+            assert sdom.n == self.m
+            blk = self.m // sdom.d
+            lo = sdom.mesh.rank * blk
+            ea, eb, ec = (sdom.coset_eval(mat.matvec(z)[lo : lo + blk]) for mat in (a, b, c))
+            q = dom.divide_by_vanishing_poly_on_coset(df.sub(df.mul(ea, eb), ec))
+            h = all_gather_cat(df.from_mont(sdom.coset_interp(q)), sdom.mesh)
         if out_len > self.m:
             h = torch.cat([h, df.zeros((out_len - self.m,))], dim=0)
         return h[:out_len]

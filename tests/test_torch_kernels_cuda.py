@@ -480,3 +480,17 @@ def test_cli_groth16_mini_on_the_card_equals_the_cpu(smoke):
     assert card["files"] == cpu["files"] and len(card["files"]) == 4
     for cmd, need in smoke.CLI_NEEDS["groth16-bn254-mini"].items():
         assert all(card["launches"][f"groth16-bn254-mini {cmd}"].get(k, 0) > 0 for k in need)
+
+
+def test_parallel_phase_on_the_card(smoke):
+    """The sharded prove on the card at 2^14 (`phase_parallel`): (p1) one
+    rank over NCCL and (p2) two ranks sharing the card over gloo, each
+    proof equal to the slice's single-device proof, K1, K2, K4 and K5
+    launched by every rank; (p3) BLS12-381 G1 and G2 msm_sharded against
+    the host ints, the fold on the 12-word K5."""
+    run = smoke.phase_slice(smoke.smi(), 14)
+    par = smoke.phase_parallel(smoke.smi(), run, 14)
+    assert len(par["p2"]) == smoke.PARALLEL_RANKS
+    for rec in [par["p1"], *par["p2"]]:
+        assert all(rec["launches"].get(k, 0) > 0 for k in smoke.PARALLEL_NEEDS)
+    assert all(g["fold_rcb_add_nw12"] > 0 for g in par["p3"].values())

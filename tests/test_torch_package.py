@@ -20,6 +20,8 @@ from ckb_zkp_tpu_torch.ops import (cuda_build, cuda_probe, field, limbs, msm, nt
                                    ristretto_device, sumcheck)
 from ckb_zkp_tpu_torch.probes import common, dma, grid, mxu, scan, window
 from ckb_zkp_tpu_torch.ops.hdomain import HDomain
+from ckb_zkp_tpu_torch.parallel import mesh as par_mesh
+from ckb_zkp_tpu_torch.parallel import multihost, ntt as par_ntt
 from ckb_zkp_tpu_torch.schemes import asvc, kzg10, marlin
 from ckb_zkp_tpu_torch.schemes.groth16 import generator, qap, serialize
 from ckb_zkp_tpu_torch.schemes.marlin import ahp
@@ -59,6 +61,7 @@ import ckb_zkp_tpu_torch.schemes.libra
 import ckb_zkp_tpu_torch.gadgets, ckb_zkp_tpu_torch.circuits, ckb_zkp_tpu_torch.curve
 import ckb_zkp_tpu_torch.host.edwards_groups, ckb_zkp_tpu_torch.serialize.struct_codec
 import ckb_zkp_tpu_torch.native, ckb_zkp_tpu_torch.cli, ckb_zkp_tpu_torch.cli.main
+import ckb_zkp_tpu_torch.parallel
 curve = get_curve("bn254")
 shape = square_chain_shape(62, curve.fr.modulus)
 params = groth16.generate_parameters_from_shape(
@@ -212,6 +215,9 @@ def test_source_scan_rejects_the_alias_loader():
     (struct_decode, "device"), (_read_artifact, "device"), (_srs_to_portable, "device"),
     (_srs_from_portable, "device"),
     (Curve.device, "device"), (Curve.vartime_multiscalar_mul, "device"),
+    (par_mesh.make_mesh, "device"), (par_mesh.rank_device, "device"),
+    (multihost.init_multihost, "device"), (multihost.global_mesh, "device"),
+    (par_ntt.ShardedDomain.__init__, "device"),
 ])
 def test_entry_points_default_to_the_card(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
