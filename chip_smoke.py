@@ -209,7 +209,11 @@ these functions, so `library_ms` is null, except for P15 (one
 The last line is {"ok": true, "device": {...}}; before it come the card's
 name and power limit and one JSON line with the kernel table (a row for
 each 8-word kernel and one, named "<kernel>_nw12", for each 12-word
-instance of K1-K6, its launches from the BLS12-381 slice, with
+instance of K1-K6, its launches from the BLS12-381 slice (K6's row is
+`csrc/rcb_wide.cuh`'s one thread a point, whose launches there count in
+`wide_design_launches`; "scan_prefix_madd_g2_nw12" and
+"rcb_fixed_base_g2_nw12" are that file's three-lane G2 kernels, their
+launches those of `cuda_build.WIDE_DESIGN`), with
 `parallel_launches` from (p1) in the K1-K6 rows and from (p3) in the
 12-word rows; K1 at
 curve25519's fields as "mont_mul_25519_fq" and "mont_mul_25519_fr", their
@@ -499,17 +503,34 @@ def k8_shapes(log2: int, scalar_bits: int = 256) -> tuple[list, list]:
 
 
 # K2 and K5 shapes besides the prove's: K2 with the leaves in order and
-# through random orders over fewer rows, at the earlier slices' edge shapes
-# and at the G2 team boundary (kSplitMax = 2048 chains and one more); K5 at
-# 1, 2 and 64 points, at the boundary (2048 and 2049 points) and at 2^14
-K2_EDGE = ((1 << 15, 32, False), (1 << 15, 32, True), (5 * 64, 5, True),
+# through random orders over fewer rows, at one chain, at the earlier
+# slices' edge shapes and at the G2 team boundary (kSplitMax = 2048 chains
+# and one more, where twelve words go to the three-lane team); at twelve
+# words `team_checks` adds both sides of each wide threshold
+# (`cuda_rcb.wide_min`) and the next ragged count; K5 at 1, 2 and 64
+# points, at the boundary (2048 and 2049 points) and at 2^14
+K2_EDGE = ((32, 32, True), (1 << 15, 32, False), (1 << 15, 32, True), (5 * 64, 5, True),
            (2048 * 32, 32, True), (2049 * 32, 32, True))
 K5_EDGE = (1, 2, 64, 2048, 2049, 1 << 14)
 
 
+def wide_edges(ext: int, kernel: str, nw: int) -> list:
+    """At twelve words, the widths around `kernel`'s wide threshold t
+    (`cuda_rcb.wide_min`): t - 1 (the last of the team design, if any), t
+    and t + 7 (a ragged last block of the wide design); none at eight
+    words or where no wide design runs (t = 0)."""
+    from ckb_zkp_tpu_torch.ops import cuda_rcb
+
+    if nw != 12:
+        return []
+    t = cuda_rcb.wide_min(ext, kernel)
+    return [n for n in (t - 1, t, t + 7) if n > 0] if t else []
+
+
 def team_checks(record, rng, curve, log2: int) -> list:
     """K2 and K5 (G1, G2) against their plain versions, bit for bit: K2 at
-    the shapes of K2_EDGE (10% of the leaves flagged), then at the prove's
+    the shapes of K2_EDGE and, at twelve words, at `wide_edges` chains of
+    32 through random orders (10% of the leaves flagged), then at the prove's
     (batch * npad, 32) through the sort order of random digits over npad
     leaves (1% flagged), as `_windows` calls it; K5 at K5_EDGE, then at
     every shape of k5_shapes(log2). Each shape is timed by CUDA events
@@ -534,7 +555,10 @@ def team_checks(record, rng, curve, log2: int) -> list:
         rg, cs, ext = dg.rg, dg.cf.coord_shape, dg.cf.ext
         eb, imad = ext * fq_bytes(dg.fq.L), imad_per_mul(dg.fq.L)
         msms = 4 if group == "g1" else 1  # MSMs of each group in a prove
-        shapes = [(M, B, "random" if o else "identity", False) for M, B, o in K2_EDGE]
+        edges = list(K2_EDGE) + [(32 * n, 32, True) for n in
+                                 wide_edges(ext, "scan_prefix_madd", dg.fq.L // 2)]
+        shapes = [(M, B, "random" if o else "identity", False)
+                  for M, B, o in dict.fromkeys(edges)]
         shapes.append((k * npad, _RCB_B, "sorted digits", True))
         for M, B, how, main in shapes:
             nl = npad if main else (M if how == "identity" else M // 2 + 3)
@@ -563,7 +587,7 @@ def team_checks(record, rng, curve, log2: int) -> list:
             err = max_abs_err(out[0] + out[1], pl[0] + pl[1])
             del out, pl
             work = (M * eb + (0 if order is None else 8 * M) + 3 * M * eb
-                    + 3 * (M // B) * eb, live * fq_muls("madd", ext) * imad)
+                    + 3 * (M // B) * eb, live * fq_muls("madd", ext, rg.b3_twist) * imad)
             rows.append(team_row(record, rg, "scan_prefix_madd", group, M, B, M // B, fn,
                                  err, plain_ms, work, main,
                                  msms * -(-nwin // k) if main else 0,
@@ -583,7 +607,7 @@ def team_checks(record, rng, curve, log2: int) -> list:
                 lambda: chunked_plain(cuda_rcb.rcb_add_plain, rg, P, Q))
             err = max_abs_err(fn(), pl)
             del pl
-            work = (9 * n * eb, n * fq_muls("add", ext) * imad)
+            work = (9 * n * eb, n * fq_muls("add", ext, rg.b3_twist) * imad)
             rows.append(team_row(record, rg, "rcb_add", group, n, None, n, fn, err,
                                  plain_ms, work, main, launches, f"{group} n={n}"))
             del P, Q
@@ -600,13 +624,16 @@ def team_row(record, rg, name, group, size, B, teams, fn, err, plain_ms, work, m
     reps = 3 if size >= 1 << 20 else 20
     ms = cuda_ms(fn, reps)
     dev = device_ms(fn, reps)
-    lanes, block = cuda_rcb.team_shape(rg, teams)
-    record(name, err, ms, plain_ms,
-           f"{what}, {teams * lanes} threads ({lanes} a team) in blocks of {block}, "
-           f"device {dev} ms" + ("; main path" if main else ""), work if main else None)
+    lanes, block, smem, design = cuda_rcb.launch_shape(rg, name, teams)
+    what = (f"{what}, {teams * lanes} threads ({lanes} a chain or point, {design}) in "
+            f"blocks of {block} ({smem} B of shared memory), device {dev} ms"
+            + ("; main path" if main else ""))
+    record(name, err, ms, plain_ms, what, work if main else None)
+    if main and group == "g2" and design.startswith("wide"):  # its own kernel's row
+        record(f"{name}_g2", err, ms, plain_ms, what, work)
     row = {"name": name, "group": group, "size": size, "B": B, "launches_prove": launches,
-           "lanes": lanes, "threads": teams * lanes, "block": block, "ms": ms,
-           "device_ms": dev, "plain_ms": plain_ms, "main": main}
+           "lanes": lanes, "threads": teams * lanes, "block": block, "smem": smem,
+           "design": design, "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "main": main}
     return row | (bound(*work) if main else {})
 
 
@@ -643,11 +670,11 @@ def scan_level_checks(record, rng, curve, log2: int) -> list:
             if name == "scan_prefix_add":
                 k, pl = k[0] + k[1], pl[0] + pl[1]
             chains = M // B
-            team, block = cuda_rcb.team_shape(rg, chains)
+            team, block, _, _ = cuda_rcb.launch_shape(rg, name, chains)
             lanes = chains * team
             w_out = 3 * M * eb if name == "scan_prefix_add" else 0
             work = (3 * M * eb + w_out + 3 * chains * eb,
-                    M * fq_muls("add", ext) * imad)
+                    M * fq_muls("add", ext, rg.b3_twist) * imad)
             ms = cuda_ms(lambda: kern(rg, pts, B), 5)
             record(name, max_abs_err(k, pl), ms, plain_ms,
                    f"{group} N={M} B={B}, {chains} chains, {lanes} threads in blocks of "
@@ -696,8 +723,9 @@ def fixed_base_scalars(rng, n: int, r: int):
 def fixed_base_checks(record, rng, curve, log2: int,
                       plain_rows: int | None = None) -> tuple[list, dict]:
     """K6's fixed-base kernel (G1, G2) against its plain version, bit for
-    bit, on random window tables: at the point counts of FB_EDGE with the
-    edge scalars of `fixed_base_scalars`, then at the setup's width
+    bit, on random window tables: at the point counts of FB_EDGE and, at
+    twelve words, of `wide_edges` with the edge scalars of
+    `fixed_base_scalars`, then at the setup's width
     (`path_shapes(log2)`, plain in chunks of points), where its projective
     totals must also equal the per-window loop's that it replaced (the
     digits, the two table-row gathers and the elementwise K6 a window, on
@@ -731,7 +759,8 @@ def fixed_base_checks(record, rng, curve, log2: int,
         rows_tab = cuda_rcb.FB_WINDOWS * cuda_rcb.FB_ROWS
         X, Y = (rand_field(rng, rows_tab, cs, dg.fq).reshape(
             cuda_rcb.FB_WINDOWS, cuda_rcb.FB_ROWS, *cs) for _ in range(2))
-        for n in FB_EDGE + (n_full,):
+        edges = dict.fromkeys(FB_EDGE + tuple(wide_edges(ext, "rcb_fixed_base", nw)))
+        for n in (*edges, n_full):
             sc = fixed_base_scalars(rng, n, r)
             main = n == n_full
 
@@ -760,23 +789,28 @@ def fixed_base_checks(record, rng, curve, log2: int,
             del out
             live = sum(int((((sc >> sh) & 0xFF) != 0).sum()) for sh in (0, 8))
             work = (n * cuda_rcb.FB_LIMBS * 4 + 2 * rows_tab * eb + 3 * n * eb,
-                    live * fq_muls("madd", ext) * imad)
+                    live * fq_muls("madd", ext, rg.b3_twist) * imad)
             ms = cuda_ms(fn, 5)
             loop_ms = cuda_ms(lambda: loop(rg, X, Y, sc), 2) if nw == 8 else None
-            kern = (f"rcb_fixed_base_kernel<{nw},1>" if ext == 1
+            design = cuda_rcb.launch_shape(rg, "rcb_fixed_base", n)[3]
+            kern = (f"rcb_wide_fixed_base{1 if ext == 1 else 3}<{nw}>"
+                    if design.startswith("wide")
+                    else f"rcb_fixed_base_kernel<{nw},1>" if ext == 1
                     else f"rcb_team_fixed_base<{nw},2,0>")
             reg = [x for x in regs if x[0] == kern]
-            record("rcb_fixed_base", err, ms, plain_ms,
-                   f"{what}, {live} live steps; main path (setup)"
-                   + (f"; the per-window loop {loop_ms:.6f} ms" if loop_ms else "")
-                   + (f"; plain on the first {k} points" if k < n else ""), work,
-                   **({"plain_rows": k} if k < n else {}))
+            what = (f"{what}, {live} live steps; main path (setup)"
+                    + (f"; the per-window loop {loop_ms:.6f} ms" if loop_ms else "")
+                    + (f"; plain on the first {k} points" if k < n else ""))
+            for row in ["rcb_fixed_base"] + (
+                    ["rcb_fixed_base_g2"] if ext == 2 and design.startswith("wide") else []):
+                record(row, err, ms, plain_ms, what, work, **({"plain_rows": k} if k < n else {}))
             rows.append({"group": group, "n": n, "windows": cuda_rcb.FB_WINDOWS,
                          "live_steps": live, "ms": ms, "device_ms": device_ms(fn, 3),
                          "plain_ms": plain_ms, "plain_rows": k, "loop_ms": loop_ms,
                          "loop_device_ms": (device_ms(lambda: loop(rg, X, Y, sc), 2)
                                             if nw == 8 else None),
-                         "kernel": kern, "registers": reg[0][1] if reg else None,
+                         "kernel": kern, "design": design,
+                         "registers": reg[0][1] if reg else None,
                          "spill_bytes": reg[0][2] if reg else None, **bound(*work)})
             torch.cuda.empty_cache()
         del X, Y
@@ -1516,13 +1550,31 @@ def phase_setup_check(log2: int, curve_name: str = "bn254") -> dict:
     return {"curve": curve, "shape": shape, "params": dev}
 
 
+def wide_design_launches(kernel: str, n: int, g1: int, g2: int, wide: bool) -> dict:
+    """The launches of `kernel` (K2 or K6) that the shape rule sends to the
+    twelve-word designs when g1 G1 and g2 G2 launches run at n chains or
+    points each, keyed as `cuda_build.WIDE_DESIGN`: those at or above the
+    group's `cuda_rcb.wide_min`; none at eight words (wide False)."""
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_rcb
+
+    out = {}
+    for ext, count in ((1, g1), (2, g2)):
+        key = f"{kernel}_g{ext}"
+        if key in cuda_build.WIDE_DESIGN:
+            t = cuda_rcb.wide_min(ext, kernel)
+            out[key] = count * (wide and 0 < t <= n)
+    return out
+
+
 def phase_slice(card: str, log2: int, curve_name: str = "bn254") -> dict:
     """Device setup, warm-up prove, timed prove and verdicts of the
     (2^log2 - 2)-constraint square chain on `curve_name`. Returns the run
     (curve, shape, toxic waste, parameters, r, s, proof) with the kernel
     launches of the setup and of the timed prove, each also as its 12-word
     launches (`cuda_build.WIDE`): on BLS12-381 the setup must launch K6's
-    12-word instance 5 times and the prove every 12-word K1-K5."""
+    12-word instance 5 times and the prove every 12-word K1-K5, and the
+    K2 and K6 launches at or above their wide thresholds must have run the
+    twelve-word designs (`cuda_build.WIDE_DESIGN`, `wide_design_launches`)."""
     import torch
 
     from ckb_zkp_tpu_torch.bench_circuits import square_chain_shape
@@ -1556,6 +1608,11 @@ def phase_slice(card: str, log2: int, curve_name: str = "bn254") -> dict:
                              "(5 times) and the elementwise K6 (rcb_madd) no time")
     if setup_wide["rcb_fixed_base"] != (5 if wide else 0):
         raise AssertionError("the setup launched K6's fixed-base kernel at the wrong width")
+    setup_design = dict(cuda_build.WIDE_DESIGN)
+    want = wide_design_launches("rcb_fixed_base", 1 << log2, 4, 1, wide)
+    if any(setup_design[k] != v for k, v in want.items()):
+        raise AssertionError(f"the setup's K6 launches ran {setup_design} on the twelve-word "
+                             f"designs, not the shape rule's {want}")
     r, s = prng.randrange(1, fr), prng.randrange(1, fr)
     t0 = time.perf_counter()
     groth16.create_proof_from_shape(params, shape, r, s)
@@ -1588,6 +1645,16 @@ def phase_slice(card: str, log2: int, curve_name: str = "bn254") -> dict:
     missing = [k for k in sorted(rcb_prove) if (prove_wide if wide else launches)[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the prove ({curve_name}): {missing}")
+    prove_design = dict(cuda_build.WIDE_DESIGN)
+    k2 = launches["scan_prefix_madd"]  # a fifth of them the G2 MSM's
+    want = wide_design_launches("scan_prefix_madd",
+                                path_shapes(log2, 256)["scan_prefix_madd"] // 32,
+                                4 * k2 // 5, k2 // 5, wide)
+    if any(prove_design[k] != v for k, v in want.items()):
+        raise AssertionError(f"the prove's K2 launches ran {prove_design} on the twelve-word "
+                             f"designs, not the shape rule's {want}")
+    log(f"K2 and K6 launches on the twelve-word designs (csrc/rcb_wide.cuh): setup "
+        f"{json.dumps(setup_design)}, timed prove {json.dumps(prove_design)}")
     log(f"K2 launches through a sort order in the timed prove: {ordered} of "
         f"{launches['scan_prefix_madd']}")
     if ordered != launches["scan_prefix_madd"]:
@@ -1597,6 +1664,7 @@ def phase_slice(card: str, log2: int, curve_name: str = "bn254") -> dict:
     return {"curve": curve, "shape": shape, "toxic": toxic, "params": params,
             "r": r, "s": s, "proof": proof, "setup_launches": setup_launches,
             "prove_launches": launches, "setup_wide": setup_wide,
+            "setup_design": setup_design, "prove_design": prove_design,
             "prove_wide": prove_wide, "setup_s": setup_s, "prove_s": prove_s,
             "setup_stages": setup_t, "prove_stages": stages}
 
@@ -2051,6 +2119,13 @@ def phase_parallel(card: str, run: dict, log2: int) -> dict:
 # BLS12-381 slice (`cuda_build.WIDE`)
 WIDE_ROWS = {f"{k}_nw12": k for k in ("mont_mul", "scan_prefix_madd", "scan_prefix_add",
                                       "scan_total_add", "rcb_add", "rcb_fixed_base")}
+# the 12-word row of K6, whose first main-path shape (G1) runs rcb_wide.cuh's
+# one thread a point: its source
+WIDE_DESIGN_SOURCES = {"rcb_fixed_base": "rcb_wide.cuh"}
+# the rows of rcb_wide.cuh's G2 kernels (their G2 main-path shapes; K6's G1
+# kernel is `rcb_fixed_base_nw12`), with their `cuda_build.WIDE_DESIGN` keys
+WIDE_DESIGN_ROWS = {"scan_prefix_madd_g2_nw12": "scan_prefix_madd_g2",
+                    "rcb_fixed_base_g2_nw12": "rcb_fixed_base_g2"}
 # at the setup's width, plain K6 at 12 words runs on this many leading
 # points only (the whole 2^20 G2 plain version takes about a minute)
 WIDE_FB_PLAIN_ROWS = 1 << 16
@@ -4569,11 +4644,13 @@ def run_phases(args, children: list) -> int:
     for row, name in WIDE_ROWS.items():
         r = results[row]
         src, replaces = KERNELS[name]
+        src = WIDE_DESIGN_SOURCES.get(name, src)
         # K6 from the setup; K1 from the setup (its normalization) and the
         # timed prove; K2-K5 from the timed prove
         launches = (wide["setup_wide"][name] if name in SETUP_KERNELS
                     else wide["prove_wide"][name]
                     + (wide["setup_wide"][name] if name == "mont_mul" else 0))
+        design = wide["setup_design"]["rcb_fixed_base_g1"] if name == "rcb_fixed_base" else None
         if launches <= 0:
             raise AssertionError(f"{row} was not launched on the BLS12-381 path")
         table.append({
@@ -4585,6 +4662,20 @@ def run_phases(args, children: list) -> int:
             "kzg_launches": kzg_wide[name], "asvc_launches": asvc_run["wide"][name],
             "parallel_launches": sum(g["wide"].get(name, 0) for g in par["p3"].values()),
             "dl_launches": dl["wide"][name], "cli_launches": cli["launches"][row]}
+            | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {})
+            | ({"wide_design_launches": design} if design is not None else {}))
+    for row, key in WIDE_DESIGN_ROWS.items():
+        name = key[: -len("_g2")]
+        launches = (wide["setup_design"] if name in SETUP_KERNELS else wide["prove_design"])[key]
+        if launches <= 0 or row not in results:
+            raise AssertionError(f"{row} was not launched or not checked on the BLS12-381 path")
+        r = results[row]
+        table.append({
+            "name": row, "route": "cuda", "source": CSRC + "rcb_wide.cuh",
+            "replaces": KERNELS[name][1], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
             | ({"plain_rows": r["plain_rows"]} if "plain_rows" in r else {}))
     for row, field_name in (("mont_mul_25519_fq", "curve25519_fq"),
                             ("mont_mul_25519_fr", "curve25519_fr")):

@@ -25,7 +25,8 @@ struct CurveConsts {
   uint32_t one[MAXW];      // R mod p: 1 in Montgomery form
   uint32_t b3[2][MAXW];    // 3b in Montgomery form (c0, c1)
   uint32_t ninv;           // -p^-1 mod 2^32
-  uint32_t b3_small;       // 3b when it is a small integer (G1), else 0
+  uint32_t b3_small;       // k when 3b is k (G1) or k + k u (b3_twist), else 0
+  uint32_t b3_twist;       // 1: 3b = k + k u (BLS12-381's G2: 3 * 4(1 + u))
 };
 
 // ---------------------------------------------------------------- Fq
@@ -199,24 +200,74 @@ __device__ __forceinline__ Fe<NW, EXT> fe_one(const CurveConsts& c) {
   return r;
 }
 
-// 3b * t: a short add chain when 3b is a small integer (BN254 G1: 9),
-// else one multiply by the Montgomery-form constant (the G2 twist).
+// Where 3b = k + k u is an add chain (CurveConsts.b3_twist): the
+// twelve-word instances only (BLS12-381's G2). The eight-word ones (BN254)
+// compile no such path, and the entries refuse the flag there (rcb.cuh
+// b3_fits).
+template <int NW>
+constexpr bool kTwistB3 = NW == MAXW;
+
+// n t for a small n > 0: a chain of doublings and adds.
+template <int NW, int EXT>
+__device__ __forceinline__ Fe<NW, EXT> fe_mul_small(const Fe<NW, EXT>& t, uint32_t n,
+                                                    const CurveConsts& c) {
+  Fe<NW, EXT> res = t, base = t;
+  bool have = false;
+  while (n) {
+    if (n & 1) {
+      res = have ? fe_add<NW, EXT>(res, base, c) : base;
+      have = true;
+    }
+    n >>= 1;
+    if (n) base = fe_add<NW, EXT>(base, base, c);
+  }
+  return res;
+}
+
+// r = n x over Fq (fe_mul_small on one component)
+template <int NW>
+__device__ __forceinline__ void fp_mul_small(uint32_t* r, const uint32_t* x, uint32_t n,
+                                             const CurveConsts& c) {
+  Fe<NW, 1> t;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) t.v[0][i] = x[i];
+  t = fe_mul_small<NW, 1>(t, n, c);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r[i] = t.v[0][i];
+}
+
+// 3b (x0 + x1 u) for 3b = k + k u: k (x0 - x1) + k (x0 + x1) u; component
+// comp of it into r.
+template <int NW>
+__device__ __forceinline__ void fp2_twist_b3(uint32_t* r, const uint32_t* x0,
+                                             const uint32_t* x1, int comp,
+                                             const CurveConsts& c) {
+  uint32_t t[NW];
+  if (comp)
+    fp_add<NW>(t, x0, x1, c);
+  else
+    fp_sub<NW>(t, x0, x1, c);
+  fp_mul_small<NW>(r, t, c.b3_small, c);
+}
+
+// 3b * t: a short add chain when 3b is a small integer (BN254 G1: 9,
+// BLS12-381 G1: 12) or, at twelve words, k + k u with a small k
+// (BLS12-381's G2 twist: 12 + 12 u; the chain runs on x0 - x1 and x0 +
+// x1), else one multiply by the Montgomery-form constant (BN254's G2
+// twist). Every path returns the canonical value of the product.
 template <int NW, int EXT>
 __device__ __forceinline__ Fe<NW, EXT> fe_mul_b3(const Fe<NW, EXT>& t,
                                                  const CurveConsts& c) {
   if (c.b3_small) {
-    Fe<NW, EXT> res = t, base = t;
-    bool have = false;
-    uint32_t n = c.b3_small;
-    while (n) {
-      if (n & 1) {
-        res = have ? fe_add<NW, EXT>(res, base, c) : base;
-        have = true;
+    if constexpr (EXT == 2 && kTwistB3<NW>) {
+      if (c.b3_twist) {
+        Fe<NW, EXT> u;
+        fp_sub<NW>(u.v[0], t.v[0], t.v[1], c);
+        fp_add<NW>(u.v[1], t.v[0], t.v[1], c);
+        return fe_mul_small<NW, EXT>(u, c.b3_small, c);
       }
-      n >>= 1;
-      if (n) base = fe_add<NW, EXT>(base, base, c);
     }
-    return res;
+    return fe_mul_small<NW, EXT>(t, c.b3_small, c);
   }
   Fe<NW, EXT> k;
 #pragma unroll

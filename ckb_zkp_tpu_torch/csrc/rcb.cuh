@@ -30,11 +30,12 @@ inline bool rcb_width(uint32_t nw) { return nw == kNW || nw == kNW12; }
 
 // constants arrive as a flat uint32 buffer from the host
 // (cuda_field.kernel_consts):
-// [nw, ninv, b3_small, p[12], one[12], b3_c0[12], b3_c1[12]]
+// [nw, ninv, b3_small, p[12], one[12], b3_c0[12], b3_c1[12], b3_twist]
 inline CurveConsts parse_consts(const uint32_t* h) {
   CurveConsts c;
   c.ninv = h[1];
   c.b3_small = h[2];
+  c.b3_twist = h[3 + 4 * MAXW];
   for (int i = 0; i < MAXW; ++i) {
     c.p[i] = h[3 + i];
     c.one[i] = h[3 + MAXW + i];
@@ -42,6 +43,15 @@ inline CurveConsts parse_consts(const uint32_t* h) {
     c.b3[1][i] = h[3 + 3 * MAXW + i];
   }
   return c;
+}
+
+// Whether the 3b of c suits a point kernel of nw words over Fq (ext 1) or
+// Fq2 (ext 2): the add chain of a small 3b is k over Fq, and over Fq2 only
+// k + k u at twelve words (field.cuh kTwistB3); the team kernels multiply
+// any other 3b over Fq2 by its Montgomery constant.
+inline bool b3_fits(const CurveConsts& c, int ext, int nw) {
+  if (ext == 1) return !c.b3_twist;
+  return !c.b3_small || (c.b3_twist && nw == kNW12);
 }
 
 inline unsigned blocks_for(long long n, int threads) {

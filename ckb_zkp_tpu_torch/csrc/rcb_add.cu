@@ -50,8 +50,7 @@ extern "C" int zkp_rcb_add(const uint32_t* consts, int ext, void* ox,
   if (!rcb_width(consts[0]) || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
-  // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
-  if (ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
+  if (!b3_fits(c, ext, (int)consts[0])) return (int)cudaErrorInvalidValue;
   auto u = [](const void* p) { return (const uint32_t*)p; };
   auto w = [](void* p) { return (uint32_t*)p; };
   const auto f = consts[0] == kNW ? pick<kNW>(ext, n) : pick<kNW12>(ext, n);

@@ -25,11 +25,15 @@
 // card many times over, where the 8-lane team issues about twice one
 // thread's instructions a step (PERF.md, K2 and K5). G2 runs on the team of
 // lanes of rcb_team.cuh (rcb_team_fixed_base; 8 lanes, a warp up to
-// kSplitMax points): one thread running 42 Fq products a step spills. Both
-// give the bits of the elementwise loop they replace. The entry launches on
+// kSplitMax points): one thread running 42 Fq products a step spills. At
+// twelve words (BLS12-381) the launches from rcb_wide.cuh's thresholds on
+// run its designs: G1 one thread a point with the next live row staged by
+// cp.async, G2 a team of three lanes, one Karatsuba part a lane
+// (rcb_wide_fixed_base). All give the bits of the elementwise loop they
+// replace. The entry launches on
 // the caller's stream, allocates nothing, does not synchronise and returns
 // cudaGetLastError().
-#include "rcb_team.cuh"
+#include "rcb_wide.cuh"
 
 namespace zkp {
 namespace {
@@ -91,6 +95,10 @@ cudaError_t launch_thread_fb(const CurveConsts& c, uint32_t* ox, uint32_t* oy,
 // the launcher of width NW for (ext, n)
 template <int NW>
 decltype(&launch_thread_fb<NW>) pick(int ext, long long n) {
+  if constexpr (NW == kNW12) {
+    if (wide_design(NW, ext, 3, n))
+      return ext == 1 ? &launch_wide_fixed_base<NW, 1> : &launch_wide_fixed_base<NW, 2>;
+  }
   return ext == 1 ? &launch_thread_fb<NW>
          : team_split(ext, n) ? &launch_team_fb<NW, 2, true>
                               : &launch_team_fb<NW, 2, false>;
@@ -108,8 +116,7 @@ extern "C" int zkp_rcb_fixed_base(const uint32_t* consts, int ext, void* ox,
   if (!rcb_width(consts[0]) || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
-  // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
-  if (ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
+  if (!b3_fits(c, ext, (int)consts[0])) return (int)cudaErrorInvalidValue;
   auto u = [](const void* p) { return (const uint32_t*)p; };
   auto w = [](void* p) { return (uint32_t*)p; };
   const auto f = consts[0] == kNW ? pick<kNW>(ext, n) : pick<kNW12>(ext, n);

@@ -48,6 +48,7 @@ extern "C" int zkp_rcb_madd(const uint32_t* consts, int ext, void* ox,
   if (consts[0] != kNW || n <= 0 || (ext != 1 && ext != 2))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
+  if (!b3_fits(c, ext, kNW)) return (int)cudaErrorInvalidValue;
   const unsigned grid = blocks_for(n, kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   auto u = [](const void* p) { return (const uint32_t*)p; };

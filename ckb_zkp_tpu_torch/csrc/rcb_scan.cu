@@ -108,8 +108,7 @@ extern "C" int zkp_rcb_scan(const uint32_t* consts, int ext, int mode,
       ((mode == 1 || mode == 2) && !z))
     return (int)cudaErrorInvalidValue;
   const CurveConsts c = parse_consts(consts);
-  // the split G2 team multiplies by 3b as an Fq2 product, not an add chain
-  if (mode <= 2 && ext == 2 && c.b3_small) return (int)cudaErrorInvalidValue;
+  if (!b3_fits(c, ext, nw)) return (int)cudaErrorInvalidValue;
   auto w = [](void* p) { return (uint32_t*)p; };
   auto r = [](const void* p) { return (const uint32_t*)p; };
   const cudaStream_t s = (cudaStream_t)stream;

@@ -33,14 +33,18 @@
 // Two team shapes:
 //   8 lanes (G1; G2 above kSplitMax): six lanes each run one Fe product of
 //     L1 and L3 (an Fq2 product is field.cuh fe_mul's three Fq products in
-//     one lane) and one operand of L3 at L2 (G1's 3b is fe_mul_b3's add
-//     chain, G2's an Fq2 product), three lanes X3, Y3, Z3; four warp syncs
-//     a step.
+//     one lane) and one operand of L3 at L2 (3b is fe_mul_b3's add chain
+//     on both BLS12-381 groups and BN254's G1, an Fq2 product on BN254's
+//     G2), three lanes X3, Y3, Z3; four warp syncs a step.
 //   A warp (G2 up to kSplitMax chains or points): each Fq2 product split
 //     into Karatsuba's three Fq products v0, v1, v2 on three lanes, 18 lanes
 //     at L1 and L3; L2 in two levels, L2a (the Karatsuba parts of the 3b
 //     products beside the adds) and L2b (their combination); five warp
-//     syncs a step. The shorter chain of products wins where chains are
+//     syncs a step. Where 3b = k + k u (b3_twist: BLS12-381, at twelve
+//     words only) L2a forms the 3b products by field.cuh fp2_twist_b3's
+//     adds and there is no L2b.
+// At twelve words, K2 on G2 and K6 run the designs of rcb_wide.cuh from
+// their width thresholds on. The shorter chain of products wins where chains are
 //     few; where they are many, the 8-lane team's fuller lanes win (on the
 //     H100 the two tie at 2048 chains; PERF.md).
 // Every value is formed by canonical field operations (each returns the
@@ -418,9 +422,33 @@ struct Team {
     if constexpr (!SPLIT) {
       l2_lanes<false>(c);
     } else {
-      // L2a: lanes 0-5 the Karatsuba parts of 3b t2 (0-2) and 3b Y3 (3-5);
-      // lanes 6-13 t3, t4, 3 t0 and t1, one component each
-      if (lane < 6) {
+      // L2a: lanes 0-5 the Karatsuba parts of 3b t2 (0-2) and 3b Y3 (3-5),
+      // or with 3b = k + k u (b3_twist) 3b Y3, Z3 and t1' themselves, one
+      // component a lane, with no L2b; lanes 6-13 t3, t4, 3 t0 and t1, one
+      // component each
+      if (kTwistB3<NW> && lane < 6 && c.b3_twist) {
+        const int o = lane / 2, comp = lane % 2;
+        uint32_t u[2][NW], m[NW], t[NW], r[NW];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          prod_comp<NW, ROW>(u[k], rows, V + 2 * P, k, c);  // t2
+          if (o == 0) {  // Y3 = m5 - (t0 + t2)
+            prod_comp<NW, ROW>(m, rows, V + 5 * P, k, c);
+            prod_comp<NW, ROW>(t, rows, V, k, c);
+            fp_add<NW>(t, t, u[k], c);
+            fp_sub<NW>(u[k], m, t, c);
+          }
+        }
+        fp2_twist_b3<NW>(r, u[0], u[1], comp, c);
+        if (o > 0) {  // Z3 = t1 + 3b t2, t1' = t1 - 3b t2
+          prod_comp<NW, ROW>(t, rows, V + P, comp, c);
+          if (o == 1)
+            fp_add<NW>(r, t, r, c);
+          else
+            fp_sub<NW>(r, t, r, c);
+        }
+        st_row<NW>(row(OPS + (3 + o) * EXT + comp), r);
+      } else if (lane < 6) {
         uint32_t u[2][NW], m[NW], t[NW], a[NW];
 #pragma unroll
         for (int comp = 0; comp < 2; ++comp) {
@@ -455,6 +483,7 @@ struct Team {
         }
       }
       sync();
+      if (kTwistB3<NW> && c.b3_twist) return;
       // L2b: 3b Y3 (lanes 0-1), Z3 = t1 + 3b t2 (2-3), t1 - 3b t2 (4-5)
       if (lane < 6) {
         const int o = lane / 2, comp = lane % 2;
@@ -479,8 +508,9 @@ struct Team {
     if constexpr (!SPLIT) {
       l2_lanes<true>(c);
     } else {
-      // L2a: lanes 0-2 the Karatsuba parts of 3b t4; lanes 3-12 t3, t5,
-      // 3 t0, Z3 and t1', one component each
+      // L2a: lanes 0-2 the Karatsuba parts of 3b t4, or with 3b = k + k u
+      // (b3_twist) lanes 0-1 3b t4 itself, one component a lane, with no
+      // L2b; lanes 3-12 t3, t5, 3 t0, Z3 and t1', one component each
       if (lane < 3) {
         uint32_t u[2][NW], x[NW], a[NW];
 #pragma unroll
@@ -489,8 +519,13 @@ struct Team {
           ld_row<NW>(x, row(ACC + comp));
           fp_add<NW>(u[comp], u[comp], x, c);
         }
-        b3_part<NW>(a, u[0], u[1], lane, c);
-        st_row<NW>(row(W2 + lane), a);
+        if (!(kTwistB3<NW> && c.b3_twist)) {
+          b3_part<NW>(a, u[0], u[1], lane, c);
+          st_row<NW>(row(W2 + lane), a);
+        } else if (lane < 2) {
+          fp2_twist_b3<NW>(a, u[0], u[1], lane, c);
+          st_row<NW>(row(OPS + 3 * EXT + lane), a);
+        }
       } else if (lane < 13) {
         const int o = (lane - 3) / 2, comp = (lane - 3) % 2;
         uint32_t r[NW], u[NW], v[NW];
@@ -524,6 +559,7 @@ struct Team {
         st_row<NW>(row(OPS + dst * EXT + comp), r);
       }
       sync();
+      if (kTwistB3<NW> && c.b3_twist) return;
       // L2b: 3b t4 (lanes 0-1)
       if (lane < 2) {
         uint32_t r[NW];

@@ -15,7 +15,8 @@ it launches its kernel, and nowhere else (`count`). ``ORDERED`` counts the
 launches of K2 and K9b that read their leaves through an order (the MSMs'
 all do). ``WIDE`` counts, beside ``COUNTS``, the launches of K1-K6's
 12-word instances (BLS12-381's Fq and Fq2; the 8-word ones serve BN254 and
-every Fr), so that a run can tell which instance ran.
+every Fr), so that a run can tell which instance ran, and ``WIDE_DESIGN``
+those of K2 and K6 that ran the twelve-word designs (``csrc/rcb_wide.cuh``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("rcb_team_scan.cu", "rcb_fixed_base.cu", "rcb_scan.cu", "ec_scan.cu",
            "probe_scan.cu", "probe_mxu.cu", "probe_grid.cu", "probe_dma.cu", "ec_add.cu",
            "ec_fixed_base.cu", "ec_madd.cu", "rcb_add.cu", "rcb_madd.cu", "mont_mul.cu")
-HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "ec_jac.cuh", "ec_team.cuh", "mont_tc.cuh",
-           "probe.cuh")
+HEADERS = ("field.cuh", "rcb.cuh", "rcb_team.cuh", "rcb_wide.cuh", "ec_jac.cuh", "ec_team.cuh",
+           "mont_tc.cuh", "probe.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 COUNTS = {
@@ -78,13 +79,17 @@ ORDERED = {"scan_prefix_madd": 0, "ec_block_totals_madd": 0}  # launches given a
 # launches of the 12-word instances (consts[0] = 12) of K1-K6
 WIDE = {"mont_mul": 0, "scan_prefix_madd": 0, "scan_prefix_add": 0, "scan_total_add": 0,
         "rcb_add": 0, "rcb_fixed_base": 0}
+# of those, the launches that ran the twelve-word designs of
+# csrc/rcb_wide.cuh, a kernel each: K2 on G2 (three lanes a chain), K6 on
+# G1 (one thread a point) and on G2 (three lanes a point)
+WIDE_DESIGN = {"scan_prefix_madd_g2": 0, "rcb_fixed_base_g1": 0, "rcb_fixed_base_g2": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
 
 
 def reset_counts() -> None:
-    for counts in (COUNTS, ORDERED, WIDE):
+    for counts in (COUNTS, ORDERED, WIDE, WIDE_DESIGN):
         for k in counts:
             counts[k] = 0
 
@@ -184,10 +189,10 @@ def lib() -> ctypes.CDLL:
         L.zkp_rcb_fixed_base.restype = i
         L.zkp_rcb_scan.argtypes = [vp, i, i] + [vp] * 10 + [ll, i, vp]
         L.zkp_rcb_scan.restype = i
-        L.zkp_rcb_team_block.argtypes = [i, ll]
-        L.zkp_rcb_team_block.restype = i
-        L.zkp_rcb_team_lanes.argtypes = [i, ll]
-        L.zkp_rcb_team_lanes.restype = i
+        L.zkp_rcb_shape.argtypes = [i, i, i, ll, vp]
+        L.zkp_rcb_shape.restype = i
+        L.zkp_rcb_wide_min.argtypes = [i, i]
+        L.zkp_rcb_wide_min.restype = ll
         L.zkp_ec_add.argtypes = [vp, i, i] + [vp] * 9 + [ll, vp]
         L.zkp_ec_add.restype = i
         L.zkp_ec_add_chain.argtypes = [vp, i] + [vp] * 9 + [ctypes.c_char_p, i, ll, vp]

@@ -34,15 +34,18 @@ PLAIN_BLOCK = 1 << 11  # rows of a plain K1 block on the CPU (a card takes all a
 _FEW_ROWS = 256  # below this, a block's columns come from one Toeplitz product
 
 
-def kernel_consts(df, b3_small: int = 0, b3_mont=None) -> np.ndarray:
-    """Flat uint32 constant block the C entries parse:
-    [nw, ninv, b3_small, p[12], one[12], b3_c0[12], b3_c1[12]]."""
+def kernel_consts(df, b3_small: int = 0, b3_mont=None, b3_twist: bool = False) -> np.ndarray:
+    """Flat uint32 constant block the C entries parse (`csrc/rcb.cuh`
+    `parse_consts`): [nw, ninv, b3_small, p[12], one[12], b3_c0[12],
+    b3_c1[12], b3_twist]. b3_small = k > 0 has the kernels multiply by 3b
+    with an add chain: 3b = k, or 3b = k + k u over Fq2 with b3_twist."""
     p = df.spec.modulus
     nw = df.L // 2
-    out = np.zeros(3 + 4 * MAXW, dtype=np.uint32)
+    out = np.zeros(3 + 4 * MAXW + 1, dtype=np.uint32)
     out[0] = nw
     out[1] = (-pow(p, -1, 1 << 32)) % (1 << 32)
     out[2] = b3_small
+    out[3 + 4 * MAXW] = int(b3_twist)
     words = lambda x: [(x >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]  # noqa: E731
     out[3 : 3 + nw] = words(p)
     out[3 + MAXW : 3 + MAXW + nw] = words(df.R)

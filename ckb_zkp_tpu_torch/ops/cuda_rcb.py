@@ -48,6 +48,7 @@ tensors; packed leaves are (M, R/2) int32 words (R = ext * L).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -184,6 +185,7 @@ def rcb_fixed_base(rg, X, Y, scalars):
         yw.data_ptr(), scalars.data_ptr(), n, cuda_build.stream_ptr(out[0]))
     cuda_build.count("rcb_fixed_base", rg.kconsts)
     cuda_build.check(rc, "rcb_fixed_base")
+    _count_design(rg, "rcb_fixed_base", n)
     return tuple(out)
 
 
@@ -251,12 +253,38 @@ def _scan_launch(rg, mode: int, ins, M: int, B: int, with_w: bool, aux=None):
     return rc, (tuple(W) if with_w else None), tuple(T)
 
 
-def team_shape(rg, n: int) -> tuple[int, int]:
-    """(lanes of a team, threads per block) of the K2-K5 team kernels for
-    n chains (K2-K4) or points (K5), as their C launchers pick them (for
+_SHAPE_KERNEL = {"scan_prefix_madd": 0, "scan_prefix_add": 1, "scan_total_add": 1,
+                 "rcb_add": 2, "rcb_fixed_base": 3}
+# the designs `launch_shape` names: rcb_team.cuh's 8-lane and warp teams,
+# K6's one thread a point at eight words, csrc/rcb_wide.cuh's one thread a
+# point (K6 G1) and three lanes a chain or point (K2 and K6 G2)
+DESIGNS = ("team", "warp team", "thread", "wide thread", "wide team")
+
+
+def launch_shape(rg, kernel: str, n: int) -> tuple[int, int, int, str]:
+    """(lanes a chain or point, threads a block, shared memory bytes a
+    block, design) of `kernel` (a `COUNTS` name of K2-K6) for n chains or
+    points in `rg`'s field, as the C entries pick it (`zkp_rcb_shape`; for
     reports; needs the card)."""
-    L = cuda_build.lib()
-    return L.zkp_rcb_team_lanes(rg.cf.ext, n), L.zkp_rcb_team_block(rg.cf.ext, n)
+    out = (ctypes.c_int * 4)()
+    rc = cuda_build.lib().zkp_rcb_shape(rg.df.L // 2, rg.cf.ext, _SHAPE_KERNEL[kernel], n,
+                                        ctypes.addressof(out))
+    cuda_build.check(rc, "zkp_rcb_shape")
+    return out[0], out[1], out[2], DESIGNS[out[3]]
+
+
+def wide_min(ext: int, kernel: str) -> int:
+    """The least chain (K2) or point (K6) count at which a twelve-word
+    launch over Fq (ext 1) or Fq2 (ext 2) runs a `csrc/rcb_wide.cuh`
+    design; 0 where none does (K2 on G1). Needs the card."""
+    return cuda_build.lib().zkp_rcb_wide_min(ext, _SHAPE_KERNEL[kernel])
+
+
+def _count_design(rg, kernel: str, n: int) -> None:
+    """Count a 12-word K2 or K6 launch of n chains or points in
+    `cuda_build.WIDE_DESIGN` where it ran a twelve-word design."""
+    if int(rg.kconsts[0]) == 12 and launch_shape(rg, kernel, n)[3].startswith("wide"):
+        cuda_build.WIDE_DESIGN[f"{kernel}_g{rg.cf.ext}"] += 1
 
 
 def _check_blocks(M: int, B: int):
@@ -279,6 +307,7 @@ def scan_prefix_madd(rg, xw, yw, B: int, order=None):
     if order is not None:
         cuda_build.ORDERED["scan_prefix_madd"] += 1
     cuda_build.check(rc, "scan_prefix_madd")
+    _count_design(rg, "scan_prefix_madd", M // B)
     return W, T
 
 

@@ -24,6 +24,20 @@ from .ec import DeviceFq2, adds, addsubs, muls, point_select
 from .field import DeviceField
 
 
+def b3_add_chain(b3: tuple, ext: int, most: int) -> tuple[int, bool]:
+    """(k, twist) when the kernels can multiply by 3b = (b3[0], b3[1]) with
+    an add chain of k <= most: 3b = k over Fq or Fq2 (twist False; over Fq2
+    only where b3[1] = 0), or 3b = k + k u over Fq2 (twist True, the
+    BLS12-381 G2 twist: 3 * 4(1 + u)); else (0, False) and the kernels
+    multiply by the Montgomery-form constant (BN254's G2: 3 * 3 / (9 + u))."""
+    k = b3[0]
+    if not 0 < k <= most:
+        return 0, False
+    if b3[1] == 0:
+        return k, False
+    return (k, True) if ext == 2 and b3[1] == k else (0, False)
+
+
 class RcbGroup:
     """RCB complete-formula ops over a coordinate field (Fq or Fq2).
 
@@ -39,11 +53,13 @@ class RcbGroup:
         p = df.spec.modulus
         b3 = (3 * b[0] % p, 3 * b[1] % p) if isinstance(cf, DeviceFq2) else (
             3 * b % p, 0)
-        # the kernels multiply by a small 3b with an add chain; the torch
-        # compositions multiply by the constant (the same canonical value)
-        small = b3[0] if b3[1] == 0 and 0 < b3[0] <= self.SMALL_B3_MAX else 0
+        # the kernels multiply by 3b = k or k + k u (a small k) with an add
+        # chain; the torch compositions multiply by the constant (the same
+        # canonical value)
+        small, twist = b3_add_chain(b3, cf.ext, self.SMALL_B3_MAX)
+        self.b3_twist = twist  # the kernels' 3b products over Fq2 are add chains
         self.b3_const = df.encode(list(b3[: cf.ext])).reshape(cf.coord_shape)
-        self.kconsts = kernel_consts(df, small, [x * df.R % p for x in b3])
+        self.kconsts = kernel_consts(df, small, [x * df.R % p for x in b3], twist)
 
     @functools.cached_property
     def plain(self) -> "RcbGroup":

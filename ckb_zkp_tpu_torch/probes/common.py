@@ -62,16 +62,17 @@ def require_card(prog: str) -> bool:
     return False
 
 
-def fq_muls(formula: str, ext: int) -> int:
+def fq_muls(formula: str, ext: int, b3_adds: bool = False) -> int:
     """Fq multiplies of one Alg. 7 add (12) or Alg. 8 mixed add (11); over
-    Fq2 the two multiplies by 3b are Fq2 products too (G1's 3b = 9 is an add
-    chain), and an Fq2 product is 3 Fq products. The Jacobian add's general
-    branch ("jadd", `_add_core`) has 16, the mixed add's ("jmadd") 11, with
-    no curve constant."""
+    Fq2 the two multiplies by 3b are Fq2 products too unless 3b = k + k u
+    makes them add chains (b3_adds: BLS12-381's G2; G1's 3b, 9 or 12, is
+    always an add chain), and an Fq2 product is 3 Fq products. The Jacobian
+    add's general branch ("jadd", `_add_core`) has 16, the mixed add's
+    ("jmadd") 11, with no curve constant."""
     if formula in ("jadd", "jmadd"):
         return {"jadd": 16, "jmadd": 11}[formula] * (3 if ext == 2 else 1)
     base = {"add": 12, "madd": 11}[formula]
-    return 3 * (base + 2) if ext == 2 else base
+    return 3 * (base + (0 if b3_adds else 2)) if ext == 2 else base
 
 
 def imad_rate() -> dict:

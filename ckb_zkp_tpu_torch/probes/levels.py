@@ -7,7 +7,7 @@ fixed-base MSM at the setup's width, and K9b and K9c at the prove's
 window batch.
 
     python3 ckb_zkp_tpu_torch/probes/levels.py --parent DIR [--log2 20] [--reps 20]
-        [--out OUT]
+        [--curve bn254|bls12_381] [--sweep] [--out OUT]
 
 DIR is an unpacked checkout of an earlier commit (for example `git archive
 HEAD | tar -x -C _archive/parent`, a directory `.gitignore` lists). Each
@@ -38,16 +38,23 @@ order of random 8-bit digits over npad leaves (1% flagged) where the tree
 reads the leaves through an order, else as the sorted copy of the leaves
 and the tree's K9b over it, as its MSM ran them; K9c (`cuda_ec.block_totals_add`) over
 jb * npad / 32 points;
-G1 and G2. Each call is timed by CUDA events and by the device time of its
+G1 and G2. `--curve bls12_381` times the 12-word instances (BLS12-381's
+Fq and Fq2) of K2-K6 at the same shapes and leaves out the Jacobian
+engine's, which have no 12-word instance. `--sweep` adds K2 at 2^11 to
+2^15 chains of B = 32 (through the sort order of two rows of digits over
+half as many leaves) and the fixed-base MSM at 2^11 to 2^19 points, the
+widths that place a shape rule's threshold. Each call is timed by CUDA events and by the device time of its
 kernels in a `torch.profiler` trace (for a launch of a few points, events
 measure mostly the host's launch overhead). Every output of every run must
 be the same bits (a SHA-256 of its limbs), so the two trees' kernels agree
-shape for shape. A tree whose `cuda_rcb` has `team_shape` also reports each
-shape's threads and block size (K2 and K5 only where they run on the
-team). Prints the card's name and power limit,
-one line a shape, the registers and spills of the team kernels in both
-trees' nvcc logs, and one JSON line; with `--out`, writes the runs' JSON
-and both trees' nvcc logs there. Needs a CUDA card; exits 2 without one.
+shape for shape. A tree whose `cuda_rcb` has `launch_shape` reports each
+shape's design, threads, block size and shared memory a block; an older
+one with `team_shape` its threads and block size (K2 and K5 only where
+they run on the team), and `team_smem` gives its slots. Prints the card's
+name and power limit, one line a shape, the registers, spills and static
+shared memory of the point kernels in both trees' nvcc logs, and one JSON
+line; with `--out`, writes the runs' JSON and both trees' nvcc logs there.
+Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -127,7 +134,22 @@ def jacobian_window_loop(cf, X, Y, sc):
     return acc
 
 
-def worker(tree: str, shapes: list, reps: int) -> dict:
+RCB_SHAPED = ("scan_prefix_madd", "scan_prefix_add", "scan_total_add", "rcb_add", "fixed_base")
+
+
+def team_smem(nw: int, ext: int, split: bool, raw: int, threads: int) -> int:
+    """Dynamic shared memory a block of a `rcb_team.cuh` team kernel: the
+    slot of `Team<NW, EXT, SPLIT, RAW>` (its WORDS) times the teams of a
+    block. RAW: 2 NW EXT words for K2, 6 NW EXT for K3/K4, 0 for K5, 2 NW
+    EXT + 8 for K6."""
+    t, p = (32, 3) if split else (8, ext)
+    nrows = ext + 3 * ext + 3 * ext + 6 * p + 6 * ext + (6 + ext if split else 0)
+    used = raw + nrows * (nw + 1)
+    words = (used + 23) // 32 * 32 + 8 if t < 32 else (used + 3) // 4 * 4
+    return threads // t * words * 4
+
+
+def worker(tree: str, shapes: list, reps: int, curve_name: str = "bn254") -> dict:
     """Time each shape with the kernels of `tree` (imported from there)."""
     sys.path.insert(0, tree)
     import numpy as np
@@ -140,6 +162,7 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
 
     cuda_build.lib()
     team_shape = getattr(cuda_rcb, "team_shape", None)
+    launch_shape = getattr(cuda_rcb, "launch_shape", None)
     ec_lanes = getattr(cuda_ec, "ec_team_lanes", None)
     chain = getattr(cuda_ec, "ec_add_chain", None)
     jac_fixed_base = getattr(cuda_ec, "ec_fixed_base", None)
@@ -147,7 +170,7 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
     fused = "order" in inspect.signature(cuda_rcb.scan_prefix_madd).parameters
     # K9b through an order
     ordered_k9b = "order" in inspect.signature(cuda_ec.block_totals_madd).parameters
-    curve = get_curve("bn254")
+    curve = get_curve(curve_name)
     out = []
     for gi, group in enumerate(("g1", "g2")):
         dg = device_group(curve, group, "cuda")
@@ -281,10 +304,22 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
                     row["threads"] = teams
                 elif ec_lanes:
                     row["threads"] = teams * ec_lanes(dg.cf, teams)
-            elif team_shape and "fixed_base" not in name and not name.startswith("ec_") and (
-                    fused or name not in ("scan_prefix_madd", "rcb_add")):
+            elif launch_shape and name in RCB_SHAPED:
+                lanes, row["block"], row["smem"], row["design"] = launch_shape(
+                    rg, "rcb_fixed_base" if name == "fixed_base" else name, teams)
+                row["threads"] = teams * lanes
+            elif name == "fixed_base" and fixed_base and dg.cf.ext == 1:
+                row["threads"], row["block"], row["smem"] = teams, 256, 0  # a thread a point
+            elif team_shape and not name.startswith("ec_") and (
+                    fused or name not in ("scan_prefix_madd", "rcb_add")) and (
+                    name != "fixed_base" or fixed_base):
                 lanes, row["block"] = team_shape(rg, teams)
                 row["threads"] = teams * lanes
+                nwe = dg.fq.L // 2 * dg.cf.ext
+                raw = {"scan_prefix_madd": 2 * nwe, "rcb_add": 0,
+                       "fixed_base": 2 * nwe + 8}.get(name, 6 * nwe)
+                row["smem"] = team_smem(dg.fq.L // 2, dg.cf.ext, lanes == 32, raw,
+                                        row["block"])
             out.append(row)
             fn = None
             torch.cuda.empty_cache()
@@ -297,18 +332,21 @@ def worker(tree: str, shapes: list, reps: int) -> dict:
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
 # a kernel's own name in its mangled name: its length, the name, its
 # template arguments (the anonymous namespace's part names the file)
 _KERNEL = re.compile(r"\d+(rcb_team_scan|rcb_team_madd_scan|rcb_team_add|rcb_scan_kernel|"
                      r"rcb_add_kernel|rcb_team_fixed_base|rcb_fixed_base_kernel|"
-                     r"rcb_madd_kernel|ec_team_add|ec_team_chain|"
+                     r"rcb_madd_kernel|rcb_wide_madd_scan[13]|rcb_wide_fixed_base[13]|ec_team_add|"
+                     r"ec_team_chain|"
                      r"ec_add_kernel|ec_fixed_base_kernel|ec_madd_kernel|ec_scan_kernel)"
                      r"I(\w+?)EEv")
 
 
 def registers(log: str) -> list:
-    """(kernel instance, registers, spill stores, spill loads) of the RCB
-    and Jacobian point kernels in an nvcc --resource-usage log."""
+    """(kernel instance, registers, spill stores, spill loads, static
+    shared memory bytes) of the RCB and Jacobian point kernels in an nvcc
+    --resource-usage log."""
     rows, name, spill = [], None, (0, 0)
     for line in log.splitlines():
         if m := _ENTRY.search(line):
@@ -318,7 +356,9 @@ def registers(log: str) -> list:
         elif (m := _REGS.search(line)) and name:
             if k := _KERNEL.search(name):  # with its template arguments <NW,EXT,...>
                 targs = ",".join(re.findall(r"L[ib](\d+)E", k.group(2) + "E"))
-                rows.append((f"{k.group(1)}<{targs}>", int(m.group(1)), *spill))
+                sm = _SMEM.search(line)
+                rows.append((f"{k.group(1)}<{targs}>", int(m.group(1)), *spill,
+                             int(sm.group(1)) if sm else 0))
             name = None
     return rows
 
@@ -328,12 +368,16 @@ def main() -> int:
     ap.add_argument("--parent", help="an unpacked earlier checkout to compare with")
     ap.add_argument("--log2", type=int, default=20)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--curve", choices=("bn254", "bls12_381"), default="bn254")
+    ap.add_argument("--sweep", action="store_true",
+                    help="add K2 and the fixed-base MSM at the widths around a threshold")
     ap.add_argument("--out", help="a directory for the runs' JSON and nvcc logs")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print("SHAPES " + json.dumps(worker(args.worker, json.loads(args.shapes), args.reps)))
+        print("SHAPES " + json.dumps(worker(args.worker, json.loads(args.shapes), args.reps,
+                                            args.curve)))
         return 0
 
     import torch
@@ -355,18 +399,24 @@ def main() -> int:
     shapes.append(("scan_prefix_madd", sizes["scan_prefix_madd"], 32, 1 << args.log2))
     shapes += [("rcb_add", n, None, None) for n, _ in chip_smoke.k5_shapes(args.log2)]
     shapes.append(("fixed_base", sizes["rcb_fixed_base"], 32, None))
-    adds, chains = chip_smoke.k8_shapes(args.log2)
-    shapes += [("ec_add", n, None, None) for n, _ in adds]
-    shapes += [("ec_add_chain", k, 32 if k == 1 else 2, None) for k, _ in chains]
-    shapes.append(("jac_fixed_base", sizes["ec_fixed_base"], 32, None))
-    shapes.append(("ec_block_totals_madd", sizes["ec_block_totals_madd"], 32, 1 << args.log2))
-    shapes.append(("ec_block_totals_add", sizes["ec_block_totals_add"], 32, None))
+    if args.sweep:
+        shapes += [("scan_prefix_madd", 32 << k, 32, 16 << k) for k in range(11, 16)]
+        shapes += [("fixed_base", 1 << k, 32, None) for k in range(11, 20)]
+    if args.curve == "bn254":  # the Jacobian engine has no 12-word kernels
+        adds, chains = chip_smoke.k8_shapes(args.log2)
+        shapes += [("ec_add", n, None, None) for n, _ in adds]
+        shapes += [("ec_add_chain", k, 32 if k == 1 else 2, None) for k, _ in chains]
+        shapes.append(("jac_fixed_base", sizes["ec_fixed_base"], 32, None))
+        shapes.append(("ec_block_totals_madd", sizes["ec_block_totals_madd"], 32,
+                       1 << args.log2))
+        shapes.append(("ec_block_totals_add", sizes["ec_block_totals_add"], 32, None))
     parent = os.path.abspath(args.parent)
     runs = []
     for tree in (parent, REPO, REPO, parent):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--shapes", json.dumps(shapes), "--reps", str(args.reps)],
+             "--shapes", json.dumps(shapes), "--reps", str(args.reps),
+             "--curve", args.curve],
             capture_output=True, text=True, cwd=tree)
         line = [x for x in proc.stdout.splitlines() if x.startswith("SHAPES ")]
         if proc.returncode != 0 or not line:
@@ -389,7 +439,9 @@ def main() -> int:
             if "threads" not in r:
                 return ""
             return f" ({r['threads']} threads" + (
-                f", blocks of {r['block']})" if "block" in r else ")")
+                f", {r['design']}" if "design" in r else "") + (
+                f", blocks of {r['block']}" if "block" in r else "") + (
+                f", {r['smem']} B smem a block)" if r.get("smem") else ")")
 
         def pair(a, b, key):
             return " / ".join("not measured" if r[key] is None else f"{r[key]:.6f}"
@@ -405,14 +457,18 @@ def main() -> int:
                           "change_ms": [new[0]["ms"], new[1]["ms"]],
                           "parent_device_ms": [old[0]["device_ms"], old[1]["device_ms"]],
                           "change_device_ms": [new[0]["device_ms"], new[1]["device_ms"]]}
-                       | {k: new[0][k] for k in ("threads", "block") if k in new[0]})
+                       | {k: new[0][k] for k in ("threads", "block", "smem", "design")
+                          if k in new[0]}
+                       | {"parent_" + k: old[0][k] for k in ("threads", "block", "smem")
+                          if k in old[0]})
     regs = {}
     for tag, tree in (("parent", parent), ("change", REPO)):
         log = os.path.join(tree, "ckb_zkp_tpu_torch", "_build", "build.log")
         text = open(log).read() if os.path.exists(log) else ""
         regs[tag] = registers(text)
-        for name, n, st, ld in regs[tag]:
-            print(f"registers {tag}: {name} {n}, spill stores {st} B, loads {ld} B")
+        for name, n, st, ld, sm in regs[tag]:
+            print(f"registers {tag}: {name} {n}, spill stores {st} B, loads {ld} B, "
+                  f"static smem {sm} B")
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             with open(os.path.join(args.out, f"levels_build_{tag}.log"), "w") as f:

@@ -77,7 +77,8 @@ def test_field_widths():
     assert int(dg.fq.kconsts[0]) == 12 and int(dg.fr.kconsts[0]) == 8
     rg1 = device_group(CURVE, "g1", "cpu").rg
     assert int(rg1.kconsts[2]) == 12  # G1's 3b = 12: the add chain
-    assert int(dg.rg.kconsts[2]) == 0  # G2's 3b = 12 + 12u: an Fq2 product
+    # G2's 3b = 12 + 12u: the add chain too, over both components (b3_twist)
+    assert (int(dg.rg.kconsts[2]), int(dg.rg.kconsts[-1])) == (12, 1)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

@@ -12,6 +12,7 @@ the card against the CPU; the CLI's Groth16 Mini on the card against the
 CPU. Marked `cuda`; without a card they skip."""
 
 import os
+import re
 import sys
 
 import pytest
@@ -92,7 +93,8 @@ def test_team_kernels_every_shape_compared(smoke):
     assert seen.count("rcb_add") == 2 * (len(smoke.K5_EDGE) + len(k5))
     assert all(r["bound_ms"] > 0 and r["ms"] > 0 for r in rows)
     rg2 = device_group(curve, "g2", "cuda").rg
-    assert cuda_rcb.team_shape(rg2, 2048)[0] == 32 and cuda_rcb.team_shape(rg2, 2049)[0] == 8
+    assert [cuda_rcb.launch_shape(rg2, k, n)[0] for k in ("scan_prefix_madd", "rcb_add")
+            for n in (2048, 2049)] == [32, 8, 32, 8]
 
 
 def test_fixed_base_every_shape_compared(smoke):
@@ -265,8 +267,57 @@ def test_wide_kernels_bit_equal_to_plain(smoke):
     engine refuses 12 words (`phase_wide_kernels`)."""
     results = {}
     smoke.phase_wide_kernels(results, 14)
-    assert set(results) == set(smoke.WIDE_ROWS)
+    assert set(results) == set(smoke.WIDE_ROWS) | set(smoke.WIDE_DESIGN_ROWS)
     assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0 for r in results.values())
+
+
+def test_wide_designs_shape_rule_and_edges(smoke):
+    """The twelve-word designs of `csrc/rcb_wide.cuh` (K2 on G2 and K6 on
+    BLS12-381): the shape rule sends a launch to them from `wide_min` on
+    (one thread a point for K6 G1, three lanes for G2), never for K2 on
+    G1 and never at eight words; K2 and K6, G1 and G2, bit for bit against
+    their plain versions at one chain or point, at both sides of each
+    threshold, at a ragged count above it and at a 2^13 slice's shapes
+    (`team_checks`, `fixed_base_checks`), and the launches there count in
+    `cuda_build.WIDE_DESIGN`."""
+    import numpy as np
+
+    from ckb_zkp_tpu_torch.host.pairing import get_curve
+    from ckb_zkp_tpu_torch.ops import cuda_build, cuda_rcb
+    from ckb_zkp_tpu_torch.ops.msm import device_group
+
+    bls, bn = get_curve("bls12_381"), get_curve("bn254")
+    for ext, group in ((1, "g1"), (2, "g2")):
+        rg, rg8 = (device_group(c, group, "cuda").rg for c in (bls, bn))
+        for kernel in ("scan_prefix_madd", "rcb_fixed_base"):
+            t = cuda_rcb.wide_min(ext, kernel)
+            if t == 0:  # no wide design (K2 on G1)
+                assert not cuda_rcb.launch_shape(rg, kernel, 1 << 20)[3].startswith("wide")
+                continue
+            lanes, _, smem, design = cuda_rcb.launch_shape(rg, kernel, t)
+            assert design == ("wide thread" if ext == 1 else "wide team")
+            assert lanes == (1 if ext == 1 else 3) and smem > 0
+            if t > 1:
+                assert not cuda_rcb.launch_shape(rg, kernel, t - 1)[3].startswith("wide")
+            assert not cuda_rcb.launch_shape(rg8, kernel, max(t, 1 << 20))[3].startswith("wide")
+    seen = []
+
+    def record(name, err, ms, plain_ms, what, work=None, library_ms=None, **kw):
+        assert err == 0, what
+        seen.append((name, what))
+
+    rng = np.random.default_rng(19)
+    cuda_build.reset_counts()
+    rows = smoke.team_checks(record, rng, bls, 13)
+    fixed, _ = smoke.fixed_base_checks(record, rng, bls, 13)
+    assert all(v > 0 for v in cuda_build.WIDE_DESIGN.values()), cuda_build.WIDE_DESIGN
+    for ext, group in ((1, "g1"), (2, "g2")):
+        for kernel, tag in (("scan_prefix_madd", "N="), ("rcb_fixed_base", "n=")):
+            for n in smoke.wide_edges(ext, kernel, 12):
+                size = 32 * n if kernel == "scan_prefix_madd" else n
+                assert any(name == kernel and re.match(rf"{group} {tag}{size}\b", what)
+                           for name, what in seen), (group, kernel, n)
+    assert all(r["bound_ms"] > 0 for r in rows + fixed)
 
 
 def test_wide_jacobian_kernels_raise_and_do_not_fall_back():

@@ -247,3 +247,6 @@ def test_cuda_sources_and_build_command():
     # the 12-word instances of K1-K6, counted beside their names
     assert set(cuda_build.WIDE) == {"mont_mul", "scan_prefix_madd", "scan_prefix_add",
                                     "scan_total_add", "rcb_add", "rcb_fixed_base"}
+    # of those, the launches of the twelve-word designs (rcb_wide.cuh), a kernel each
+    assert set(cuda_build.WIDE_DESIGN) == {"scan_prefix_madd_g2", "rcb_fixed_base_g1",
+                                           "rcb_fixed_base_g2"}

@@ -208,3 +208,30 @@ def test_madd_k6_wrapper_refuses_non_cpu_tensors_without_a_kernel():
     flags = torch.zeros((1,), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         cuda_rcb.rcb_madd(dg.rg, pt, (pt[0][:1], pt[1], flags))
+
+
+def test_b3_add_chain_constants_and_the_twist_identity():
+    """The kernels' constant block (`kernel_consts`, read by
+    `csrc/rcb.cuh` `parse_consts`) has them multiply by 3b with an add
+    chain on BN254's G1 (3b = 9) and on BLS12-381's G1 (12) and G2 (12 + 12
+    u, b3_twist), and by the Montgomery constant on BN254's G2 (3b = 9 /
+    (9 + u)); over BLS12-381 Fq, k (x0 - x1) + k (x0 + x1) u (field.cuh
+    `fp2_twist_b3`) equals (x0 + x1 u) 3b' for seeded x, in host ints."""
+    from ckb_zkp_tpu_torch.host.pairing import get_curve as port_curve
+    from ckb_zkp_tpu_torch.ops.cuda_field import MAXW
+
+    want = {("bn254", "g1"): (9, 0), ("bn254", "g2"): (0, 0),
+            ("bls12_381", "g1"): (12, 0), ("bls12_381", "g2"): (12, 1)}
+    for (name, group), (k, twist) in want.items():
+        kc = device_group(port_curve(name), group, "cpu").rg.kconsts
+        assert (int(kc[2]), int(kc[3 + 4 * MAXW])) == (k, twist), (name, group)
+    curve = port_curve("bls12_381")
+    p = curve.fq.modulus
+    b3 = tuple(3 * b % p for b in curve.g2.b)
+    assert b3 == (12, 12)
+    rng = np.random.default_rng(19)
+    for _ in range(64):
+        x0, x1 = (int.from_bytes(rng.bytes(48), "little") % p for _ in range(2))
+        chain = (12 * (x0 - x1) % p, 12 * (x0 + x1) % p)
+        assert chain == tuple(curve.tower.f2_mul((x0, x1), b3))
+    assert tuple(curve.tower.f2_mul((1, p - 1), b3)) == (24, 0)
